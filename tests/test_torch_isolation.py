@@ -1,0 +1,61 @@
+"""The port stands alone: no JAX, nothing of gym2048_tpu, no PyTorch headers.
+
+The machine with the GPU has PyTorch and no JAX, so the port and
+chip_smoke.py must import with ``jax`` and ``gym2048_tpu`` unavailable, and
+importing them must not build or load the CUDA library.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "gym2048_tpu_torch"
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|gym2048_tpu)(?![\w_])", re.M)
+
+
+def test_port_modules_are_found():
+    assert {"gym2048_tpu_torch", "gym2048_tpu_torch.core.rules",
+            "gym2048_tpu_torch.core.fused_step", "gym2048_tpu_torch.env.batched",
+            "gym2048_tpu_torch.interop", "gym2048_tpu_torch._build",
+            "gym2048_tpu_torch._sass"} <= set(PORT_MODULES)
+
+
+def test_imports_without_jax_or_the_jax_package():
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['gym2048_tpu'] = None",
+        "import importlib",
+        f"for name in {PORT_MODULES!r} + ['chip_smoke']:",
+        "    importlib.import_module(name)",
+        "from gym2048_tpu_torch import _build",
+        "assert _build.library.cache_info().currsize == 0, 'library loaded at import'",
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'gym2048_tpu.'))",
+        "               for m in sys.modules if sys.modules[m] is not None)",
+        "print('ISOLATED')",
+    ])
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+    assert "ISOLATED" in done.stdout
+
+
+def test_no_source_names_jax_or_the_jax_package_in_an_import():
+    sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [str(p) for p in sources if _IMPORT.search(p.read_text())]
+    assert not offenders
+
+
+def test_cuda_sources_include_no_pytorch_header():
+    cu = list((PORT / "csrc").glob("*.cu*"))
+    assert cu
+    for p in cu:
+        assert "torch/extension.h" not in p.read_text()
+        assert not re.search(r"#include\s*[<\"](torch|ATen|c10)/", p.read_text())
