@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the self-play engine on one GPU.
+"""Drive the PyTorch/CUDA port of gym2048_tpu on one GPU.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds ``gym2048_tpu_torch/csrc/fused_step.cu`` with ``nvcc``, holds every
-kernel against its plain PyTorch version on the card (bit for bit), drives
-the engine's main path at the repository's headline size (1,048,576 boards
-stepped 1024 times in one rollout launch, ``bench.py::bench_pallas``) and
-checks random-play statistics, then replays 65,536 of those boards step by
-step through the single-step kernels. The rollout and the replay are two
-paths, each driven between zeroed launch counters and reported with its
-own counts. Each phase prints one line with its seconds;
-any failed check raises, so the exit code is non-zero. Without CUDA it
-exits non-zero before printing any result: it never runs on the CPU.
+It builds the CUDA sources under ``gym2048_tpu_torch/csrc/`` with one
+``nvcc`` each, all started together, and holds every kernel against its
+plain PyTorch version on the card (bit for bit). Then it drives three
+paths, each between zeroed launch counters and reported with its own
+counts:
+
+* the self-play engine at the repository's headline size (1,048,576
+  boards stepped 1024 times in one rollout launch, ``bench.py::bench_pallas``),
+  checked by random-play statistics;
+* a step-by-step replay of 65,536 of those boards through the single-step
+  kernels;
+* the n-tuple agent: the flagship adaptive depth-3 afterstate expectimax
+  over the staged 4x6 network at full width (201,326,592 f32 entries, made
+  on the card from a seed), whose every value lookup is the table gather
+  kernel; its first 128 moves are replayed with the plain lookup and must
+  be identical.
+
+Each phase prints one line with its seconds; any failed check raises, so
+the exit code is non-zero. Without CUDA it exits non-zero before printing
+any result: it never runs on the CPU.
 
 The last lines of standard output are the card's name and power limit as
 ``nvidia-smi`` reports them, one JSON object with each kernel's launches,
@@ -49,20 +59,43 @@ TIMED_RUNS = 5            # bench.py SAMPLES
 MEM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 132 * 128 * 1.98e9
 
+FUSED_SOURCE = "gym2048_tpu_torch/csrc/fused_step.cu"
+GATHER_SOURCE = "gym2048_tpu_torch/csrc/table_gather.cu"
+# kernel -> (the TPU kernel it replaces, its source, its kernel in the SASS)
 KERNELS = {
-    "fused_rollout": "gym2048_tpu/core/pallas_step.py:414",
-    "fused_step_uniform": "gym2048_tpu/core/pallas_step.py:311",
-    "fused_move": "gym2048_tpu/core/pallas_step.py:357",
-    "random_uniform_rows": "scripts/tpu_pallas_stats.py:42",
+    "fused_rollout": ("gym2048_tpu/core/pallas_step.py:414", FUSED_SOURCE,
+                      "fused_rollout_kernel"),
+    "fused_step_uniform": ("gym2048_tpu/core/pallas_step.py:311", FUSED_SOURCE,
+                           "fused_step_uniform_kernel"),
+    "fused_move": ("gym2048_tpu/core/pallas_step.py:357", FUSED_SOURCE,
+                   "fused_move_kernel"),
+    "random_uniform_rows": ("scripts/tpu_pallas_stats.py:42", FUSED_SOURCE,
+                            "random_uniform_rows_kernel"),
+    "gather_values": ("gym2048_tpu/models/pallas_table.py:101", GATHER_SOURCE,
+                      "gather4_kernel"),
 }
 # The paths that drive the kernels, each read with its own launch counts:
-# the engine's rollout, and the step-by-step replay that runs the
-# single-step kernels on the rollout's own uniforms.
+# the engine's rollout, the step-by-step replay that runs the single-step
+# kernels on the rollout's own uniforms, and the n-tuple agent.
 PATHS = {
     "rollout": ("fused_rollout",),
     "step replay": ("fused_step_uniform", "fused_move", "random_uniform_rows"),
+    "agent": ("gather_values",),
 }
-SOURCE = "gym2048_tpu_torch/csrc/fused_step.cu"
+
+# The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
+# td_4x6_tc_r5_adaptive_d3_eval.json): 4x6 layout, n_vals 16, stages at
+# exponents 12 and 13, adaptive depth 3 with k_deep 8 and deep_empty_max 8,
+# 64 games. The table is normal values x 100 (score units) from SEED: the
+# committed trained table is not read here.
+AGENT_ARCH, AGENT_N_VALS, AGENT_THRESHOLDS = "4x6", 16, (12, 13)
+AGENT_GAMES, AGENT_K_DEEP, AGENT_EMPTY_MAX = 64, 8, 8
+AGENT_MOVE_CAP = 1024      # lockstep moves, so the phase stays near 30 s
+AGENT_CHUNK = 128
+REPLAY_MOVES = 128         # moves replayed with the plain lookup
+GATHER_UNIFORM_N = 1 << 23
+LEAF_BOARDS = 512          # boards whose depth-2 leaves make the real stream
+TIMING_GAMES = 512         # README: --episodes 512 --depth 2
 
 PHILOX_KAT = [  # Random123 known answers: counter, key, result
     ((0, 0, 0, 0), (0, 0),
@@ -138,6 +171,64 @@ def random_boards(rng, n: int, max_exp: int, p_zero: float) -> np.ndarray:
     return np.where(rng.random((n, 4, 4)) < p_zero, 0, exps).astype(np.int8)
 
 
+def leaf_afterstates(boards: torch.Tensor) -> torch.Tensor:
+    """The depth-2 leaf afterstates of ``(B, 4, 4)`` boards, ``(B * 512, 4, 4)``:
+    each move's afterstate, each of its 32 spawn children, each child's 4
+    moves. These are the boards whose values the last level of a depth-2
+    afterstate search reads (illegal moves and impossible spawns included,
+    as the search evaluates them)."""
+    from gym2048_tpu_torch.agents.expectimax import spawn_children
+    from gym2048_tpu_torch.core import rules
+
+    b = boards.shape[0]
+    moved = rules.move_all(boards)[0].reshape(b * 4, 4, 4)
+    children = spawn_children(moved)[0].reshape(b * 128, 4, 4)
+    return rules.move_all(children)[0].reshape(b * 512, 4, 4)
+
+
+def plain_value_fn(net):
+    """``net.value_batch`` with the plain lookup in place of the kernel."""
+    from gym2048_tpu_torch.models.table_gather import gather_values_reference
+
+    def value(table, boards):
+        idx = net.indices_batch(boards)
+        return gather_values_reference(table, idx.reshape(-1)).reshape(idx.shape).sum(-1) / 8.0
+
+    return value
+
+
+class MoveRecord:
+    """Wraps an adaptive ``policy(params, boards, active)`` and keeps each
+    move's boards, live mask and actions on the device; :meth:`replay`
+    checks and scores them after the run, outside the timed region."""
+
+    def __init__(self, policy):
+        self.policy = policy
+        self.boards: list[torch.Tensor] = []
+        self.active: list[torch.Tensor] = []
+        self.actions: list[torch.Tensor] = []
+
+    def __call__(self, params, boards, active):
+        a = self.policy(params, boards, active)
+        self.boards.append(boards)
+        self.active.append(active)
+        self.actions.append(a)
+        return a
+
+    def replay(self, moves: int):
+        """Over the first ``moves`` moves: the number of live boards given an
+        illegal action, and each game's score and length."""
+        from gym2048_tpu_torch.core import rules
+
+        boards = torch.stack(self.boards[:moves])
+        live = torch.stack(self.active[:moves])
+        col = torch.stack(self.actions[:moves]).long()[..., None]
+        _, scores, legal = rules.move_all(boards)
+        illegal = (live & ~legal.gather(-1, col)[..., 0]).sum().item()
+        score = torch.where(live, scores.gather(-1, col)[..., 0], 0).sum(0)
+        return illegal, score.tolist(), live.sum(0).tolist()
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -150,15 +241,18 @@ class Smoke:
 
     def __init__(self):
         from gym2048_tpu_torch.core import fused_step
+        from gym2048_tpu_torch.models import table_gather
 
         self.fs = fused_step
+        self.tg = table_gather
+        self.counters = (fused_step.LAUNCHES, table_gather.LAUNCHES)
         self.dev = torch.device("cuda")
-        self.kernels = {name: {"name": name, "route": "cuda", "source": SOURCE,
+        self.kernels = {name: {"name": name, "route": "cuda", "source": source,
                                "replaces": where, "library_ms": None}
-                        for name, where in KERNELS.items()}
+                        for name, (where, source, _) in KERNELS.items()}
         self.rng = np.random.default_rng(SEED)
         self.path_launches: dict[str, dict[str, int]] = {}
-        self.run_launches = dict.fromkeys(fused_step.LAUNCHES, 0)
+        self.run_launches = {name: 0 for c in self.counters for name in c}
 
     def run(self, num: str, name: str, fn) -> None:
         t0 = time.perf_counter()
@@ -167,10 +261,14 @@ class Smoke:
         print(f"phase {num:>3} {name}: {detail} [{time.perf_counter() - t0:.2f} s]",
               flush=True)
 
+    def launches(self) -> dict[str, int]:
+        return {name: n for c in self.counters for name, n in c.items()}
+
     def zero_launches(self) -> None:
-        for name, count in self.fs.LAUNCHES.items():
-            self.run_launches[name] += count
-            self.fs.LAUNCHES[name] = 0
+        for c in self.counters:
+            for name, count in c.items():
+                self.run_launches[name] += count
+                c[name] = 0
 
     def drive(self, path: str, fn):
         """Run ``fn``, one path, between zeroed launch counts; record the
@@ -178,7 +276,7 @@ class Smoke:
         self.zero_launches()
         out = fn()
         torch.cuda.synchronize()
-        counts = dict(self.fs.LAUNCHES)
+        counts = self.launches()
         self.zero_launches()
         self.path_launches[path] = counts
         for name in PATHS[path]:
@@ -198,19 +296,23 @@ class Smoke:
 
         from gym2048_tpu_torch import _sass
 
-        path = _build.build()
-        _build.library()
-        self.issue = _sass.issue_counts(_sass.dump(path))
-        counts = {name: self.issue[f"{name}_kernel"] for name in KERNELS}
-        return (f"{path.name} from {SOURCE} with nvcc {' '.join(_build.NVCC_FLAGS)}; "
+        paths = _build.build_all()
+        self.issue = {}
+        for name, path in paths.items():
+            _build.library(name)
+            self.issue.update(_sass.issue_counts(_sass.dump(path)))
+        counts = {name: self.issue[sass] for name, (_, _, sass) in KERNELS.items()}
+        return (f"{', '.join(p.name for p in paths.values())}, one nvcc "
+                f"{' '.join(_build.NVCC_FLAGS)} per source, started together; "
                 f"fewest SASS instructions per thread "
                 + ", ".join(f"{k} {c.outside}" + (f" + {c.per_iteration}/step"
                                                   if c.per_iteration else "")
-                            for k, c in counts.items()))
+                            for k, c in counts.items())
+                + f"; gather1_kernel {self.issue['gather1_kernel'].outside}")
 
     def ops(self, kernel: str, threads: int, iterations: int = 0) -> int:
         """Thread instructions ``threads`` threads of ``kernel`` issue at least."""
-        return threads * self.issue[f"{kernel}_kernel"].per_thread(iterations)
+        return threads * self.issue[KERNELS[kernel][2]].per_thread(iterations)
 
     # 3
     def philox(self) -> str:
@@ -318,6 +420,7 @@ class Smoke:
         check(8.0 < per_step < 10.5, f"score per step {per_step}")
         check(distinct > 0.9 * FULL_B, f"{distinct} distinct final boards")
         self.full_out = (board, score, episodes, total)
+        self.leaf_roots = fs.from_cell_major(board[:, :LEAF_BOARDS].contiguous())
         return (f"rollout B={FULL_B} T={FULL_T}: episode length {ep_len:.2f}, "
                 f"score/step {per_step:.3f}, {distinct} distinct boards; "
                 f"launches {self.path_launches['rollout']}")
@@ -436,7 +539,169 @@ class Smoke:
         return (f"{n} boards x {steps} random-legal steps: {eps} episodes, "
                 f"length {ep_len:.2f}, score/step {per_step:.3f}")
 
-    # 10
+    # 11
+    def gather_values(self) -> str:
+        """The lookup kernel on the flagship table at full width, on a
+        uniform index stream and on the stream a depth-2 search reads."""
+        from gym2048_tpu_torch.models import ntuple_big
+
+        tg = self.tg
+        net = ntuple_big.make_network(AGENT_ARCH, AGENT_N_VALS, AGENT_THRESHOLDS)
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        table = torch.randn(net.table_size, generator=gen, device=self.dev).mul_(100.0)
+        self.net, self.table = net, table
+        streams = {
+            "uniform": torch.randint(0, net.table_size, (GATHER_UNIFORM_N,), generator=gen,
+                                     device=self.dev, dtype=torch.int32),
+            "real": net.indices_batch(leaf_afterstates(self.leaf_roots)).reshape(-1),
+        }
+        check(streams["real"].numel() == LEAF_BOARDS * 512 * net.n_features,
+              f"real stream of {streams['real'].numel()} indices")
+        parts = []
+        for label, idx in streams.items():
+            got = tg.gather_values(table, idx)
+            want = tg.gather_values_reference(table, idx)
+            err = max_abs_err([got], [want])
+            check(err == 0.0 and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"gather_values differs from plain on the {label} stream by {err}")
+            idx64 = idx.long()
+            n = idx.numel()
+            ms = graph_ms(lambda: tg.gather_values(table, idx), 20)
+            lib_ms = graph_ms(lambda: torch.take(table, idx64), 20)
+            plain_ms = event_ms(lambda: tg.gather_values_reference(table, idx), 5)
+            sectors = torch.unique(idx // 8).numel()
+            b_ms, b_by = bound(self.ops("gather_values", n // 4), 8 * n + 32 * sectors)
+            parts.append(f"{label} N={n}: bit-exact, kernel {ms:.4f} ms, torch.take "
+                         f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, {sectors} distinct "
+                         f"32-B sectors ({sectors / n:.4f} per index), bound "
+                         f"{b_ms:.4f} ms ({b_by})")
+            if label == "real":
+                rec = self.kernels["gather_values"]
+                rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+            del got, want, idx64
+        del streams
+        return (f"table {AGENT_ARCH} n_vals {AGENT_N_VALS} thresholds {AGENT_THRESHOLDS}: "
+                f"{net.table_size} f32; " + "; ".join(parts))
+
+    # 12
+    def agent_path(self) -> str:
+        """The flagship agent over the full-width table, driven as path
+        "agent"; its first moves are replayed with the plain lookup."""
+        from gym2048_tpu_torch.agents import expectimax as ex
+
+        net, table = self.net, self.table
+        rec = MoveRecord(ex.make_adaptive_policy(net.value_batch, AGENT_K_DEEP, AGENT_EMPTY_MAX))
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        res = self.drive("agent", lambda: ex.play_policy(
+            rec, AGENT_GAMES, gen, AGENT_MOVE_CAP, AGENT_CHUNK, params=table,
+            needs_active=True, device=self.dev))
+        secs = time.perf_counter() - t0
+        moves = len(rec.actions)
+        searched = sum(e["moves"] for e in res["Episodes"])
+        illegal, _, lengths = rec.replay(moves)
+        check(illegal == 0, f"{illegal} illegal actions on live boards")
+        check(lengths == [e["moves"] for e in res["Episodes"]], "play_policy and the record disagree")
+
+        plain = MoveRecord(ex.make_adaptive_policy(plain_value_fn(net), AGENT_K_DEEP,
+                                                   AGENT_EMPTY_MAX))
+        launched = self.tg.LAUNCHES["gather_values"]
+        pres = ex.play_policy(plain, AGENT_GAMES, torch.Generator(device=self.dev).manual_seed(SEED),
+                              REPLAY_MOVES, AGENT_CHUNK, params=table, needs_active=True,
+                              device=self.dev)
+        check(self.tg.LAUNCHES["gather_values"] == launched, "the plain replay launched the kernel")
+        check(len(plain.actions) == REPLAY_MOVES and moves >= REPLAY_MOVES, "replay length")
+        check(torch.equal(torch.stack(rec.actions[:REPLAY_MOVES]), torch.stack(plain.actions)),
+              f"actions differ from the plain lookup's within {REPLAY_MOVES} moves")
+        mine, theirs = rec.replay(REPLAY_MOVES), plain.replay(REPLAY_MOVES)
+        check(mine == theirs, "scores or lengths differ from the plain replay")
+        check([e["total_reward"] for e in pres["Episodes"]] == theirs[1]
+              and [e["moves"] for e in pres["Episodes"]] == theirs[2],
+              "the plain replay's result disagrees with its record")
+        launches = self.path_launches["agent"]["gather_values"]
+        live = sum(1 for e in res["Episodes"] if e["moves"] == moves)
+        return (f"adaptive depth 3 (k_deep {AGENT_K_DEEP}, empties <= {AGENT_EMPTY_MAX}, beam) "
+                f"over the {net.table_size}-entry table, {AGENT_GAMES} games, {moves} lockstep "
+                f"moves (cap {AGENT_MOVE_CAP}), {live} games live at the cap: "
+                f"{searched / secs:.1f} searched moves/s ({searched} in {secs:.2f} s) on "
+                f"{self.smi}; mean score {res['Average score']:.1f}, mean length "
+                f"{searched / AGENT_GAMES:.1f}, highest tile {res['Highest tile']}; every live "
+                f"action legal; first {REPLAY_MOVES} moves identical to the plain lookup's "
+                f"(actions, scores, lengths); gather_values {launches} launches, "
+                f"{launches / moves:.2f} per move")
+
+    # 12b
+    def agent_profile(self) -> str:
+        """``torch.profiler`` over a few lockstep moves of the flagship agent
+        on fresh games (phase 12 warmed it up): the device's busy share of
+        the wall time and the kernels that take the most device time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from gym2048_tpu_torch.agents import expectimax as ex
+
+        pol = ex.make_adaptive_policy(self.net.value_batch, AGENT_K_DEEP, AGENT_EMPTY_MAX)
+        moves = 4
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ex.play_policy(pol, AGENT_GAMES, torch.Generator(device=self.dev).manual_seed(SEED),
+                           moves, moves, params=self.table, needs_active=True, device=self.dev)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device-side events only (kernels, copies, sets): host operators
+        # also carry the device time of what they launched
+        device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        busy = sum(device_us.values())
+        if busy == 0:
+            return "torch.profiler recorded no device time: busy share not measured"
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:3]
+        gather = sum(us for k, us in device_us.items() if "gather" in k and "_kernel" in k)
+        return (f"{moves} moves x {AGENT_GAMES} games under the profiler: wall "
+                f"{wall_us / moves / 1e3:.3f} ms per move, device busy {busy / moves / 1e3:.3f} "
+                f"ms per move ({busy / wall_us:.4f} of the wall time), {len(device_us)} "
+                f"distinct device kernels, the gather kernels {gather / busy:.4f} of the "
+                f"device time; top: " + "; ".join(f"{k[:50]} {us / busy:.3f}" for k, us in top))
+
+    # 13
+    def agent_timing(self) -> str:
+        """Depth-2 afterstate search, 512 games (the README's CLI config),
+        one chunk of moves per run; searched moves/s, median of 3."""
+        from gym2048_tpu_torch.agents import expectimax as ex
+
+        pol = ex.make_afterstate_policy(self.net.value_batch, depth=2, parametrised=True)
+        rates = []
+        for _ in range(3):
+            gen = torch.Generator(device=self.dev).manual_seed(SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ex.play_policy(pol, TIMING_GAMES, gen, AGENT_CHUNK, AGENT_CHUNK,
+                                 params=self.table, device=self.dev)
+            rates.append(sum(e["moves"] for e in res["Episodes"]) / (time.perf_counter() - t0))
+        rates.sort()
+        return (f"{TIMING_GAMES} games x {AGENT_CHUNK} moves at depth 2: {rates[1]:.1f} "
+                f"searched moves/s (median of 3, spread {rates[0]:.1f}-{rates[2]:.1f}) "
+                f"on {self.smi}; mean score {res['Average score']:.1f}")
+
+    # 14
+    def heuristic_expectimax(self) -> str:
+        """The heuristic-leaf search (no kernel) on the card."""
+        from gym2048_tpu_torch.agents import expectimax as ex
+
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        t0 = time.perf_counter()
+        res = ex.play_batched(AGENT_GAMES, depth=2, generator=gen, move_cap=AGENT_CHUNK,
+                              device=self.dev)
+        secs = time.perf_counter() - t0
+        moves = [e["moves"] for e in res["Episodes"]]
+        check(min(moves) >= 1 and res["Average score"] > 0, f"heuristic games {res}")
+        return (f"play_batched depth 2, {AGENT_GAMES} games, cap {AGENT_CHUNK}: "
+                f"{sum(moves) / secs:.1f} searched moves/s, mean score "
+                f"{res['Average score']:.1f}, mean length {sum(moves) / len(moves):.1f}")
+
+    # 15
     def launch_counters(self) -> str:
         self.zero_launches()
         for name in KERNELS:
@@ -462,7 +727,12 @@ def main() -> int:
     smoke.run("8b", "step replay", smoke.step_replay)
     smoke.run("8c", "main path timing", smoke.main_path_measure)
     smoke.run("9", "batched env", smoke.batched_env)
-    smoke.run("10", "launch counters", smoke.launch_counters)
+    smoke.run("11", "gather_values", smoke.gather_values)
+    smoke.run("12", "agent path", smoke.agent_path)
+    smoke.run("12b", "agent profile", smoke.agent_profile)
+    smoke.run("13", "agent timing", smoke.agent_timing)
+    smoke.run("14", "heuristic expectimax", smoke.heuristic_expectimax)
+    smoke.run("15", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,11 +1,13 @@
-"""Count the instructions each kernel of the built library issues per thread.
+"""Count the instructions each kernel of the built libraries issues per thread.
 
 The fused step kernels are bound by instruction issue, not by memory: an
 H100 SM issues at most four warp instructions per clock, 128 thread
 instructions, whatever their type. Their bound is therefore the number of
 instructions a thread must run over that rate, and the number is read from
-the machine code itself (``cuobjdump -sass`` of the library that
-:mod:`gym2048_tpu_torch._build` made), not from the C++ source.
+the machine code itself (``cuobjdump -sass`` of the libraries that
+:mod:`gym2048_tpu_torch._build` made), not from the C++ source. The table
+gather is bound by memory, but its issue time is the other term of its
+bound, counted the same way.
 
 A kernel's code branches on the data (which lines merge, whether a board
 resets), so the count taken is the **shortest** control-flow path a thread
@@ -17,9 +19,10 @@ the loop's head to its back branch. A guarded ``EXIT`` (the bounds check
 of a thread past the end) counts as falling through; ``CALL`` counts as one
 instruction without its callee. Both keep the count a lower bound.
 
-    python -m gym2048_tpu_torch._sass [library]
+    python -m gym2048_tpu_torch._sass [library ...]
 
-prints the counts of every kernel in the library (default: the built one).
+prints the counts of every kernel in the given libraries (default: every
+library of ``_build.LIBRARIES``, built if out of date).
 """
 
 from __future__ import annotations
@@ -180,10 +183,11 @@ def issue_counts(listing: str) -> dict[str, IssueCount]:
 def main(argv: list[str]) -> int:
     from gym2048_tpu_torch import _build
 
-    library = Path(argv[0]) if argv else _build.build()
-    for name, count in issue_counts(dump(library)).items():
-        print(f"{name}: {count.outside} outside a loop, "
-              f"{count.per_iteration} per iteration")
+    libraries = [Path(a) for a in argv] or list(_build.build_all().values())
+    for library in libraries:
+        for name, count in issue_counts(dump(library)).items():
+            print(f"{library.name} {name}: {count.outside} outside a loop, "
+                  f"{count.per_iteration} per iteration")
     return 0
 
 

@@ -1,8 +1,9 @@
-"""Carry state from the JAX package into the port, through numpy.
+"""Carry state and weights from the JAX package into the port, through numpy.
 
-The JAX package's ``EnvState`` and cell-major boards leave it as numpy
-arrays (``np.asarray``); these helpers copy them into the port's tensors so
-that both packages can start from the same state.
+The JAX package's ``EnvState``, cell-major boards and n-tuple tables leave
+it as numpy arrays (``np.asarray``); these helpers copy them into the port's
+tensors so that both packages can start from the same state, and build the
+port's network from a JAX meta/config so that both evaluate the same one.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from gym2048_tpu_torch.core.fused_step import to_cell_major
 from gym2048_tpu_torch.env.batched import EnvState
+from gym2048_tpu_torch.models.ntuple_big import NTupleNetwork, make_network
 
 
 def env_state_from_numpy(d: Mapping[str, np.ndarray],
@@ -36,3 +38,29 @@ def cell_major_from_numpy(boards: np.ndarray,
     """``(B, 4, 4)`` exponent boards as numpy -> ``[16, B]`` int32 cell-major
     tensor on ``device``, the layout of the fused kernels."""
     return to_cell_major(torch.tensor(np.asarray(boards), device=device))
+
+
+def table_from_numpy(table: np.ndarray,
+                     device: str | torch.device = "cuda") -> torch.Tensor:
+    """An n-tuple table as numpy (any shape) -> flat contiguous float32
+    tensor on ``device``, the layout :mod:`models.ntuple_big` reads."""
+    return torch.from_numpy(np.ascontiguousarray(table, np.float32).reshape(-1)
+                            ).to(device)
+
+
+def network_from_config(cfg: Mapping) -> NTupleNetwork:
+    """The port's :class:`NTupleNetwork` for a JAX n-tuple config (the
+    ``config`` of a table's meta, or the meta itself): a named ``arch`` of
+    ``LAYOUTS`` or explicit ``tuples``, with ``n_vals`` (default 16) and
+    ``thresholds`` (default none). ``arch == "small"`` is the small 17 x
+    4-cell net, which the port does not have yet."""
+    n_vals = int(cfg.get("n_vals", 16))
+    thresholds = tuple(int(t) for t in cfg.get("thresholds", ()))
+    if cfg.get("tuples") is not None:
+        return NTupleNetwork(cfg["tuples"], n_vals, thresholds)
+    arch = cfg.get("arch", "small")
+    if arch == "small":
+        raise ValueError("the small 17 x 4-cell n-tuple net is not ported yet; "
+                         "it comes with the port's TD training slice. Only "
+                         "the layouts of models/ntuple_big.py are ported")
+    return make_network(arch, n_vals, thresholds)

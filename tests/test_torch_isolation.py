@@ -24,7 +24,11 @@ def test_port_modules_are_found():
     assert {"gym2048_tpu_torch", "gym2048_tpu_torch.core.rules",
             "gym2048_tpu_torch.core.fused_step", "gym2048_tpu_torch.env.batched",
             "gym2048_tpu_torch.interop", "gym2048_tpu_torch._build",
-            "gym2048_tpu_torch._sass"} <= set(PORT_MODULES)
+            "gym2048_tpu_torch._sass", "gym2048_tpu_torch.models.ntuple",
+            "gym2048_tpu_torch.models.table_gather",
+            "gym2048_tpu_torch.models.ntuple_big",
+            "gym2048_tpu_torch.agents.expectimax",
+            "gym2048_tpu_torch.utils.checkpoint"} <= set(PORT_MODULES)
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -37,6 +41,7 @@ def test_imports_without_jax_or_the_jax_package():
         "    importlib.import_module(name)",
         "from gym2048_tpu_torch import _build",
         "assert _build.library.cache_info().currsize == 0, 'library loaded at import'",
+        "assert not any(m == 'triton' or m.startswith('triton.') for m in sys.modules)",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'gym2048_tpu.'))",
         "               for m in sys.modules if sys.modules[m] is not None)",
         "print('ISOLATED')",
