@@ -7,7 +7,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the CUDA sources under ``gym2048_tpu_torch/csrc/`` with one
 ``nvcc`` each, all started together, and holds every kernel against its
-plain PyTorch version on the card (bit for bit). Then it drives three
+plain PyTorch version on the card (bit for bit). Then it drives four
 paths, each between zeroed launch counters and reported with its own
 counts:
 
@@ -20,7 +20,16 @@ counts:
   over the staged 4x6 network at full width (201,326,592 f32 entries, made
   on the card from a seed), whose every value lookup is the table gather
   kernel; its first 128 moves are replayed with the plain lookup and must
-  be identical.
+  be identical;
+* the flagship TD learner (``train/td.py``): the config of
+  ``docs/curves/ntuple_4x6_tc_r5.meta.json`` at full width (8192 envs,
+  the staged 4x6 table with its TC accumulators, delayed TC every 8 steps,
+  carousel 0.5), one 64-step chunk, one lookup kernel launch per step. A
+  16-step chunk is replayed with the plain lookup in deterministic mode and
+  must leave every leaf of the state identical; the learner's rate is
+  measured in two configs, profiled, and checked to learn: 50 chunks of the
+  unstaged 4x6 TC config of ``docs/curves/td_4x6_tc_run.jsonl`` must reach
+  an episode score inside the band that the JAX runs bracket.
 
 Each phase prints one line with its seconds; any failed check raises, so
 the exit code is non-zero. Without CUDA it exits non-zero before printing
@@ -33,6 +42,7 @@ error, times and bound, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -81,6 +91,7 @@ PATHS = {
     "rollout": ("fused_rollout",),
     "step replay": ("fused_step_uniform", "fused_move", "random_uniform_rows"),
     "agent": ("gather_values",),
+    "td": ("gather_values",),
 }
 
 # The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
@@ -96,6 +107,25 @@ REPLAY_MOVES = 128         # moves replayed with the plain lookup
 GATHER_UNIFORM_N = 1 << 23
 LEAF_BOARDS = 512          # boards whose depth-2 leaves make the real stream
 TIMING_GAMES = 512         # README: --episodes 512 --depth 2
+
+# The flagship learner: docs/curves/ntuple_4x6_tc_r5.meta.json's config,
+# total_steps excepted (the trainer takes chunks, not a total, here).
+TD_FLAGSHIP = dict(n_envs=8192, alpha=1.0, alpha_final=1.0, init_value=0.0, seed=7,
+                   chunk_steps=64, update_impl="auto", value_impl="auto", tc=True,
+                   arch="4x6", n_vals=16, thresholds=(12, 13), tc_every=8,
+                   carousel=0.5, carousel_slots=256)
+# bench.py::bench_td_big: 8192 envs x 16 steps, 4x6, TC, unstaged
+TD_BENCH_BIG = dict(n_envs=8192, chunk_steps=16, arch="4x6", tc=True, alpha=1.0,
+                    alpha_final=1.0, init_value=0.0)
+# docs/curves/td_4x6_tc_run.jsonl: 4x6, TC, unstaged, 8192 envs, alpha 1,
+# init 0; its first line is at 26,214,400 steps = 50 chunks x 64 x 8192
+TD_LEARN = dict(n_envs=8192, chunk_steps=64, arch="4x6", tc=True, alpha=1.0,
+                alpha_final=1.0, init_value=0.0, seed=SEED, total_steps=26_214_400)
+# The JAX runs logged 41,377 and 44,870 there (td_4x6_tc_r4_run.jsonl,
+# td_4x6_tc_run.jsonl); random play scores ~1,000.
+TD_LEARN_BAND = (24_800.0, 65_000.0)
+TD_REPLAY_STEPS = 16       # the deterministic kernel-vs-plain chunk
+TD_TIMED_CHUNKS = 3
 
 PHILOX_KAT = [  # Random123 known answers: counter, key, result
     ((0, 0, 0, 0), (0, 0),
@@ -227,6 +257,62 @@ class MoveRecord:
         illegal = (live & ~legal.gather(-1, col)[..., 0]).sum().item()
         score = torch.where(live, scores.gather(-1, col)[..., 0], 0).sum(0)
         return illegal, score.tolist(), live.sum(0).tolist()
+
+
+def clone_state(state: dict) -> dict:
+    """A copy of a TD train state that training the original does not touch,
+    its generator included."""
+    out = {k: v.clone() for k, v in state.items() if k != "generator"}
+    gen = state["generator"]
+    out["generator"] = torch.Generator(device=gen.device)
+    out["generator"].set_state(gen.get_state())
+    return out
+
+
+def state_diffs(a: dict, b: dict) -> list[str]:
+    """The leaves of two TD train states that are not equal bit for bit."""
+    check(set(a) == set(b), f"state keys {sorted(a)} vs {sorted(b)}")
+    bad = [k for k in a if k != "generator" and not torch.equal(
+        a[k].view(torch.int32) if a[k].dtype == torch.float32 else a[k],
+        b[k].view(torch.int32) if b[k].dtype == torch.float32 else b[k])]
+    if not torch.equal(a["generator"].get_state(), b["generator"].get_state()):
+        bad.append("generator")
+    return bad
+
+
+def short_kernel_name(key: str) -> str:
+    """A profiler kernel name without its return type and namespaces."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "at::", "c10::"):
+        key = key.replace(noise, "")
+    return key[:110]
+
+
+@contextlib.contextmanager
+def plain_lookup():
+    """Within this block the network's lookup is the plain version
+    (``torch.take``) instead of the kernel."""
+    from gym2048_tpu_torch.models import ntuple_big, table_gather
+
+    saved = ntuple_big.gather_values
+    ntuple_big.gather_values = table_gather.gather_values_reference
+    try:
+        yield
+    finally:
+        ntuple_big.gather_values = saved
+
+
+def timed_chunks(trainer, state, chunks: int):
+    """Run ``chunks`` chunks after the given state, each host-timed to a
+    device sync; returns the state, the seconds of each, and the last
+    chunk's metrics."""
+    secs = []
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_chunk(state, 1.0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, secs, metrics
 
 
 def nvidia_smi_line() -> str:
@@ -701,7 +787,221 @@ class Smoke:
                 f"{sum(moves) / secs:.1f} searched moves/s, mean score "
                 f"{res['Average score']:.1f}, mean length {sum(moves) / len(moves):.1f}")
 
-    # 15
+    # 15a
+    def td_path(self) -> str:
+        """The flagship TD learner at full width, one chunk, driven as path
+        "td": one lookup kernel launch per step."""
+        from gym2048_tpu_torch.train import td
+
+        cfg = td.TDConfig(**TD_FLAGSHIP)
+        self.td_trainer = tr = td.TDTrainer(cfg, device=self.dev)
+        state = tr.init_state()
+        t0 = time.perf_counter()
+        state, m = self.drive("td", lambda: tr.train_chunk(state, 1.0))
+        secs = time.perf_counter() - t0
+        launches = self.path_launches["td"]["gather_values"]
+        check(launches == cfg.chunk_steps, f"{launches} lookups in a {cfg.chunk_steps}-step chunk")
+        check(all(torch.isfinite(state[k]).all().item() for k in ("table", "tc_e", "tc_a")),
+              "non-finite table or accumulators")
+        check(not {"tc_ps", "tc_pa", "tc_pc"} & set(state), "pending buffers left in the state")
+        filled = state["car_filled"].sum(1).tolist()
+        self.td_state = state
+        return (f"{cfg.arch} n_vals {cfg.n_vals} thresholds {cfg.thresholds}, "
+                f"{tr._net.table_size} f32 x 3 (table, tc_e, tc_a), {cfg.n_envs} envs, "
+                f"tc_every {cfg.tc_every}, carousel {cfg.carousel}: first chunk of "
+                f"{cfg.chunk_steps} steps in {secs:.3f} s (allocation included), "
+                f"{m['episodes'].item():.0f} episodes, highest exponent "
+                f"{m['highest_exp'].item()}, reservoir slots filled per stage {filled}; "
+                f"launches {self.path_launches['td']}")
+
+    # 15b
+    def td_gather(self) -> str:
+        """The lookup kernel on the TD step's own stream: the 4 afterstates
+        of each of the 8192 boards of the learner's state."""
+        from gym2048_tpu_torch.core import rules
+
+        tg, net, table = self.tg, self.td_trainer._net, self.td_state["table"]
+        boards = self.td_state["boards"]
+        moved = rules.move_all(boards)[0].reshape(-1, 4, 4)
+        idx = net.indices_batch(moved).reshape(-1)
+        n = idx.numel()
+        check(n == 4 * boards.shape[0] * net.n_features, f"TD stream of {n} indices")
+        got = tg.gather_values(table, idx)
+        want = tg.gather_values_reference(table, idx)
+        err = max_abs_err([got], [want])
+        check(err == 0.0 and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"gather_values differs from plain on the TD stream by {err}")
+        idx64 = idx.long()
+        rec = self.kernels["gather_values"]
+        ms = graph_ms(lambda: tg.gather_values(table, idx), 20)
+        lib_ms = graph_ms(lambda: torch.take(table, idx64), 20)
+        plain_ms = event_ms(lambda: tg.gather_values_reference(table, idx), 5)
+        sectors = torch.unique(idx // 8).numel()
+        b_ms, b_by = bound(self.ops("gather_values", n // 4), 8 * n + 32 * sectors)
+        rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        return (f"N={n} (4 afterstates x {boards.shape[0]} boards x {net.n_features}): "
+                f"bit-exact, kernel {ms:.4f} ms, torch.take {lib_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, {sectors} distinct 32-B sectors ({sectors / n:.4f} per "
+                f"index), bound {b_ms:.4f} ms ({b_by}); "
+                f"{self.path_launches['td']['gather_values']} launches per chunk")
+
+    # 15c
+    def td_replay(self) -> str:
+        """A full-width flagship chunk of 16 steps from the learner's state,
+        with the lookup kernel and with the plain lookup, in deterministic
+        mode: every leaf of the state must be equal bit for bit, and equal
+        again when the kernel's chunk is repeated. The same chunk twice in
+        the default mode gives the mode's cost and shows whether the
+        default mode repeats itself."""
+        import dataclasses
+
+        from gym2048_tpu_torch.train import td
+
+        cfg = dataclasses.replace(self.td_trainer.cfg, chunk_steps=TD_REPLAY_STEPS)
+        tr = td.TDTrainer(cfg, device=self.dev)
+
+        def run(lookup: str, deterministic: bool):
+            launched = self.tg.LAUNCHES["gather_values"]
+            torch.use_deterministic_algorithms(deterministic)
+            try:
+                with plain_lookup() if lookup == "plain" else contextlib.nullcontext():
+                    state, secs, _ = timed_chunks(tr, clone_state(self.td_state), 1)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            kernel_launches = self.tg.LAUNCHES["gather_values"] - launched
+            check(kernel_launches == (TD_REPLAY_STEPS if lookup == "kernel" else 0),
+                  f"{kernel_launches} kernel launches in the {lookup} run")
+            return state, secs[0]
+
+        det1, det1_s = run("kernel", True)
+        plain, plain_s = run("plain", True)
+        default1, default1_s = run("kernel", False)
+        det2, det2_s = run("kernel", True)
+        default2, default2_s = run("kernel", False)
+        bad = state_diffs(det1, plain)
+        check(not bad, f"the plain-lookup chunk differs from the kernel's in {bad}")
+        bad = state_diffs(det1, det2)
+        check(not bad, f"two deterministic chunks differ in {bad}")
+        moved = (det1["table"] != self.td_state["table"]).sum().item()
+        check(moved > 0, "the replayed chunk did not move the table")
+        return (f"{TD_REPLAY_STEPS} steps x {cfg.n_envs} envs, deterministic mode: kernel "
+                f"and plain lookup give identical states in all {len(det1)} leaves "
+                f"({moved} table entries moved), and so does the kernel's chunk repeated; "
+                f"seconds per chunk: deterministic {det1_s:.3f} then {det2_s:.3f} with the "
+                f"kernel, {plain_s:.3f} plain; default mode {default1_s:.3f} and "
+                f"{default2_s:.3f}; leaves that differ between the two default-mode chunks: "
+                f"{state_diffs(default1, default2)}, between default and deterministic: "
+                f"{state_diffs(default1, det1)}")
+
+    def td_rate(self, config: dict, label: str) -> str:
+        from gym2048_tpu_torch.train import td
+
+        tr = td.TDTrainer(td.TDConfig(**config), device=self.dev)
+        state, _, _ = timed_chunks(tr, tr.init_state(), 1)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launched = self.tg.LAUNCHES["gather_values"]
+        state, secs, m = timed_chunks(tr, state, TD_TIMED_CHUNKS)
+        per_chunk = (self.tg.LAUNCHES["gather_values"] - launched) / TD_TIMED_CHUNKS
+        peak = torch.cuda.max_memory_allocated()
+        steps = tr.cfg.n_envs * tr.cfg.chunk_steps
+        rates = sorted(steps / x for x in secs)
+        del state
+        return (f"{label}: {rates[len(rates) // 2]:.1f} steps/s (median of {TD_TIMED_CHUNKS} "
+                f"chunks of {tr.cfg.chunk_steps} steps, spread {rates[0]:.1f}-{rates[-1]:.1f}), "
+                f"peak {peak / 2**30:.3f} GiB allocated ({(peak - base) / 2**30:.3f} GiB above "
+                f"the {base / 2**30:.3f} GiB held before), {per_chunk:.0f} gather launches per "
+                f"chunk, ep_score_mean {m['ep_score_mean'].item():.1f}")
+
+    # 15d
+    def td_throughput(self) -> str:
+        """Steps/s of the learner in the CLI's default mode at full width:
+        the flagship config and bench.py's bench_td_big cell."""
+        return (self.td_rate(TD_FLAGSHIP, "flagship (ntuple_4x6_tc_r5 config)") + "; "
+                + self.td_rate(TD_BENCH_BIG, "bench_td_big (4x6 TC unstaged, 16 steps)")
+                + f"; on {self.smi}")
+
+    # 15e
+    def td_profile(self) -> str:
+        """``torch.profiler`` over one flagship chunk (device events only):
+        the device's busy share and top kernels; and the device time of the
+        chunk's table-sized pieces, each timed alone at full width."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from gym2048_tpu_torch.models.ntuple import _tc_combine
+
+        tr, state = self.td_trainer, clone_state(self.td_state)
+        steps = tr.cfg.chunk_steps
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train_chunk(state, 1.0)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        busy = sum(device_us.values())
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+        profiled = (f"wall {wall_us / steps / 1e3:.3f} ms per step under the profiler, device "
+                    f"busy {busy / steps / 1e3:.3f} ms per step ({busy / wall_us:.4f} of the "
+                    f"wall time), {launches / steps:.1f} device kernels per step, "
+                    f"{len(device_us)} distinct; top: "
+                    + "; ".join(f"{short_kernel_name(k)} {us / busy:.3f}" for k, us in top)
+                    if busy else "torch.profiler recorded no device time: busy share not "
+                    "measured")
+        # the pieces, timed alone on the state's arrays
+        net, table = tr._net, state["table"]
+        pend = tuple(torch.zeros_like(table) for _ in range(3))
+        boards = state["prev_after"]
+        delta = torch.randn(boards.shape[0], generator=torch.Generator(device=self.dev)
+                            .manual_seed(SEED), device=self.dev)
+        alpha = torch.tensor(1.0)
+        acc_ms = graph_ms(lambda: net.tc_accumulate(pend, boards, delta,
+                                                    valid=state["prev_valid"]), 10)
+        comb_ms = event_ms(lambda: _tc_combine(table, state["tc_e"], state["tc_a"], *pend,
+                                               alpha), 3)
+        zero_ms = event_ms(lambda: [p.zero_() for p in pend], 3)
+        torch.cuda.synchronize()
+        del pend
+        k = tr.cfg.tc_every
+        step_ms = busy / steps / 1e3 if busy else float("nan")
+        tc_bytes = 9 * table.numel() * 4  # read table, tc_e, tc_a, 3 pending; write 3
+        return (profiled + f". Alone: tc_accumulate ({boards.shape[0]} boards) {acc_ms:.4f} ms, "
+                f"_tc_combine {comb_ms:.3f} ms ({tc_bytes / comb_ms / 1e9:.3f} TB/s of its "
+                f"{tc_bytes / 2**30:.2f} GiB of inputs and outputs), zeroing the pending "
+                f"buffers {zero_ms:.3f} ms; per step: scatter {acc_ms / step_ms:.3f}, combine "
+                f"{comb_ms / k / step_ms:.3f}, zeroing {zero_ms / k / step_ms:.3f} of the "
+                f"device time")
+
+    # 15f
+    def td_learning(self) -> str:
+        """50 chunks of the unstaged 4x6 TC learner from an empty table: the
+        last chunk's episode score must lie in the band of the JAX runs."""
+        from gym2048_tpu_torch.train import td
+
+        cfg = td.TDConfig(**TD_LEARN)
+        tr = td.TDTrainer(cfg, device=self.dev)
+        t0 = time.perf_counter()
+        state, hist = tr.learn(log_every=10, log_fn=None)
+        secs = time.perf_counter() - t0
+        last = hist[-1]
+        check(last.steps == cfg.total_steps, f"trained {last.steps} steps")
+        check(torch.isfinite(state["table"]).all().item(), "non-finite table")
+        lo, hi = TD_LEARN_BAND
+        check(lo <= last.ep_score_mean <= hi,
+              f"ep_score_mean {last.ep_score_mean} at {last.steps} steps outside [{lo}, {hi}]")
+        curve = ", ".join(f"{e.steps}: {e.ep_score_mean:.1f} ({e.episodes:.0f} episodes)"
+                          for e in hist)
+        return (f"{cfg.arch} TC unstaged, {cfg.n_envs} envs, {cfg.total_steps} steps in "
+                f"{secs:.2f} s ({cfg.total_steps / secs:.1f} steps/s): ep_score_mean {curve}; "
+                f"the last in [{lo:.0f}, {hi:.0f}], highest tile {last.highest_tile_max}")
+
+    # 16
     def launch_counters(self) -> str:
         self.zero_launches()
         for name in KERNELS:
@@ -732,7 +1032,13 @@ def main() -> int:
     smoke.run("12b", "agent profile", smoke.agent_profile)
     smoke.run("13", "agent timing", smoke.agent_timing)
     smoke.run("14", "heuristic expectimax", smoke.heuristic_expectimax)
-    smoke.run("15", "launch counters", smoke.launch_counters)
+    smoke.run("15a", "td path", smoke.td_path)
+    smoke.run("15b", "td gather", smoke.td_gather)
+    smoke.run("15c", "td kernel vs plain", smoke.td_replay)
+    smoke.run("15d", "td throughput", smoke.td_throughput)
+    smoke.run("15e", "td profile", smoke.td_profile)
+    smoke.run("15f", "td learning", smoke.td_learning)
+    smoke.run("16", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -48,6 +48,21 @@ def table_from_numpy(table: np.ndarray,
                             ).to(device)
 
 
+def train_state_from_numpy(d: Mapping[str, np.ndarray],
+                           device: str | torch.device = "cuda",
+                           generator: torch.Generator | None = None) -> dict:
+    """A JAX TD train state taken out as numpy (the dict of ``TDTrainer.
+    init_state`` or of a ``save_train_state`` file) -> the port's train
+    state on ``device``, every array with its dtype. The JAX PRNG ``key``
+    has no counterpart and is dropped (as is a saved ``generator_state``);
+    ``generator``, when given, becomes the state's ``"generator"``."""
+    state = {k: torch.from_numpy(np.array(v, copy=True)).to(device)
+             for k, v in d.items() if k not in ("key", "generator_state")}
+    if generator is not None:
+        state["generator"] = generator
+    return state
+
+
 def network_from_config(cfg: Mapping) -> NTupleNetwork:
     """The port's :class:`NTupleNetwork` for a JAX n-tuple config (the
     ``config`` of a table's meta, or the meta itself): a named ``arch`` of
@@ -60,7 +75,7 @@ def network_from_config(cfg: Mapping) -> NTupleNetwork:
         return NTupleNetwork(cfg["tuples"], n_vals, thresholds)
     arch = cfg.get("arch", "small")
     if arch == "small":
-        raise ValueError("the small 17 x 4-cell n-tuple net is not ported yet; "
-                         "it comes with the port's TD training slice. Only "
-                         "the layouts of models/ntuple_big.py are ported")
+        raise ValueError("the small 17 x 4-cell n-tuple net is not ported yet "
+                         "(ROADMAP.md, Queue 1 item 3). Only the layouts of "
+                         "models/ntuple_big.py are ported")
     return make_network(arch, n_vals, thresholds)

@@ -1,9 +1,11 @@
-"""What the big n-tuple network and the agents need from the small one.
+"""What the big n-tuple network, its trainer and the agents need from the
+small one.
 
 Counterpart of ``gym2048_tpu/models/ntuple.py``: the 8 board symmetries
-(``SYMS``), the stage of a board in a staged table (``stage_of_batch``)
-and weight promotion (``promote_table``). The small 17 x 4-cell network
-itself (its lookups and TD updates) is not ported yet.
+(``SYMS``), the stage of a board in a staged table (``stage_of_batch``),
+weight promotion (``promote_table``) and the temporal-coherence combine
+(``_tc_combine``). The small 17 x 4-cell network itself (its lookups and TD
+updates) is not ported yet.
 """
 
 from __future__ import annotations
@@ -60,3 +62,26 @@ def stage_of_batch(boards: torch.Tensor, thresholds: tuple[int, ...]) -> torch.T
     for t in thresholds:
         s = s + (m >= t).to(torch.int32)
     return s
+
+
+def _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha):
+    """Temporal-coherence update of flat f32 arrays (``ntuple._tc_combine``):
+    add the signed and absolute TD-error masses ``sums`` / ``absums`` into
+    ``tc_e`` / ``tc_a``, derive each entry's coherence rate ``|E| / A``
+    (1.0 for an entry never touched), and move ``table`` by ``alpha`` x rate
+    x the count-normalised mean update. Returns new ``(table, tc_e, tc_a)``;
+    the inputs are not modified.
+
+    The operations and their order are the JAX module's,
+    ``table + alpha * rate * d``, each rounded as the expression reads (as
+    JAX runs it op by op; compiled, XLA's CPU backend fuses the last
+    multiply-add into one rounding). The in-place steps below only reuse
+    temporaries. At the flagship width each array is 805 MB.
+    """
+    d = sums / cnts.clamp(min=1.0)
+    e2 = tc_e + sums
+    a2 = tc_a + absums
+    rate = e2.abs().div_(a2.clamp(min=1e-30))
+    rate.masked_fill_(~(a2 > 0.0), 1.0)  # where(a2 > 0, rate, 1), NaN included
+    step = rate.mul_(alpha).mul_(d)  # (alpha * rate) * d
+    return table + step, e2, a2

@@ -2,9 +2,11 @@
 
 Counterpart of ``gym2048_tpu/models/ntuple_big.py``: the named tuple
 layouts (``LAYOUTS``), :class:`NTupleNetwork` and :func:`make_network`.
-Ported members: the geometry, :meth:`NTupleNetwork.indices_batch`,
-:meth:`~NTupleNetwork.init_table`, :meth:`~NTupleNetwork.value_batch` and
-:meth:`~NTupleNetwork.make_value_fn`. The TD updates are not ported yet.
+All of the JAX class is ported: the geometry,
+:meth:`NTupleNetwork.indices_batch`, :meth:`~NTupleNetwork.init_table`,
+:meth:`~NTupleNetwork.value_batch`, :meth:`~NTupleNetwork.make_value_fn`
+and the TD updates (:meth:`~NTupleNetwork.td_update`,
+:meth:`~NTupleNetwork.td_update_tc`, :meth:`~NTupleNetwork.tc_accumulate`).
 
 A board's value is the mean over the 8 symmetries of the sum of one table
 entry per tuple. The flat table holds one sub-table of ``n_vals ** len(t)``
@@ -16,6 +18,14 @@ Feature indices are plain integer arithmetic; the JAX module builds them
 with an f32 one-hot matmul that is exact below 2**24, so both give the same
 indices. The lookup is :func:`gym2048_tpu_torch.models.table_gather.gather_values`,
 the CUDA kernel on the card.
+
+A TD update is a count-normalised scatter: each touched entry moves by the
+MEAN of the per-occurrence updates that hit it (a plain scatter-add of the
+updates diverges; ``docs/PERF.md``, "Stability note"). The scatters are
+``index_add_``, as the JAX module leaves them to XLA's scatter. On CUDA its
+float atomics add duplicates in no fixed order, so the bits of a sum can
+differ from run to run unless ``torch.use_deterministic_algorithms(True)``
+is set, which gives ``index_add_`` a deterministic path.
 """
 
 from __future__ import annotations
@@ -23,8 +33,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gym2048_tpu_torch.models.ntuple import SYMS, stage_of_batch
+from gym2048_tpu_torch.models.ntuple import SYMS, _tc_combine, stage_of_batch
 from gym2048_tpu_torch.models.table_gather import gather_values
+
+_LANES = 128  # the JAX module's "rows" modes need a table of whole 128-lane rows
 
 # flat row-major cell indices on the 4x4 board (ntuple_big.LAYOUTS)
 LAYOUTS: dict[str, tuple[tuple[int, ...], ...]] = {
@@ -60,21 +72,25 @@ class NTupleNetwork:
     ``tuples`` are cell-index tuples (lengths may differ); ``n_vals`` is the
     exponent domain per cell (exponents clip to ``n_vals - 1``);
     ``thresholds`` are the max-tile-exponent stage boundaries. ``value_impl``
-    is accepted for the JAX signature: its "gather" and "rows" modes give
-    the same numbers there, and both use the one lookup kernel here.
+    and ``update_impl`` are accepted for the JAX signature: their "rows"
+    modes are 128-lane forms for the TPU that give the same numbers as
+    "gather" and "scatter" there, and here every mode is the one lookup
+    kernel and the one scatter. As in JAX, a table whose size is not a
+    multiple of 128 records "gather" and "scatter".
     """
 
     def __init__(self, tuples, n_vals: int = 16, thresholds: tuple[int, ...] = (),
-                 value_impl: str = "gather"):
+                 value_impl: str = "gather", update_impl: str = "scatter"):
         tuples = tuple(tuple(int(c) for c in t) for t in tuples)
         if not tuples or not all(0 <= c < 16 for t in tuples for c in t):
             raise ValueError(f"tuples must hold cells 0..15, got {tuples}")
         if value_impl not in ("gather", "rows"):
             raise ValueError(f"unknown value_impl {value_impl!r}")
+        if update_impl not in ("scatter", "rows"):
+            raise ValueError(f"unknown update_impl {update_impl!r}")
         self.tuples = tuples
         self.n_vals = int(n_vals)
         self.thresholds = tuple(int(t) for t in thresholds)
-        self.value_impl = value_impl
         self.n_tuples = len(tuples)
         self.n_features = 8 * self.n_tuples  # lookups per board
         self.max_len = max(len(t) for t in tuples)
@@ -88,6 +104,10 @@ class NTupleNetwork:
         self.table_size = self.stage_stride * self.n_stages
         if self.table_size >= 2 ** 31:
             raise ValueError("table too large for int32 indices")
+        if self.table_size % _LANES:
+            value_impl, update_impl = "gather", "scatter"
+        self.value_impl = value_impl
+        self.update_impl = update_impl
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
 
         # every tuple padded to max_len with (cell 0, positional base 0): a
@@ -143,11 +163,90 @@ class NTupleNetwork:
         """Bind ``table`` into a ``(N, 4, 4) -> (N,)`` value function."""
         return lambda boards: self.value_batch(table, boards)
 
+    def td_update(self, table: torch.Tensor, boards: torch.Tensor,
+                  deltas: torch.Tensor, alpha, valid: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+        """Count-normalised TD update: each entry touched by the ``(B, 4, 4)``
+        ``boards`` receives the mean of the ``alpha * deltas`` occurrences
+        that hit it, so a single board's value moves by exactly ``alpha *
+        delta`` even where its symmetries collide on an entry. Boards with
+        ``valid`` False contribute nothing. Returns a new table."""
+        sums, cnts = self._scatter2(boards, (alpha * 8.0 / self.n_features) * deltas,
+                                    valid)
+        return table + sums / cnts.clamp(min=1.0)
+
+    def td_update_tc(self, table: torch.Tensor, tc_e: torch.Tensor,
+                     tc_a: torch.Tensor, boards: torch.Tensor, deltas: torch.Tensor,
+                     alpha, valid: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Temporal-coherence TD update (Beal & Smith 1999): each entry's rate
+        is ``|sum of its updates| / sum of their magnitudes``, kept in
+        ``tc_e`` / ``tc_a``. Three scatters on one index vector, then
+        :func:`~gym2048_tpu_torch.models.ntuple._tc_combine`. Returns new
+        ``(table, tc_e, tc_a)``."""
+        w0 = (8.0 / self.n_features) * deltas
+        sums, absums, cnts = self._scatter3(boards, w0, valid)
+        return _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha)
+
+    def tc_accumulate(self, pending: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                      boards: torch.Tensor, deltas: torch.Tensor,
+                      valid: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Add one step's TC statistics into the table-sized ``pending``
+        ``(sums, absums, counts)`` buffers without touching the table: the
+        accumulation half of delayed TC learning (arXiv:1604.05085), whose
+        combine runs every k steps. The buffers are updated IN PLACE (the
+        JAX module's functional update would copy them every step) and
+        returned. Combining the accumulated buffers with ``_tc_combine`` is
+        one TC update of the concatenated steps."""
+        w0 = (8.0 / self.n_features) * deltas
+        idx, w, keep = self._flat_updates(boards, w0, valid)
+        payloads = (w, w.abs(), torch.ones_like(w))
+        if keep is not None:
+            payloads = tuple(torch.where(keep, p, 0.0) for p in payloads)
+        return tuple(acc.index_add_(0, idx, p) for acc, p in zip(pending, payloads))
+
+    def _flat_updates(self, boards, w_board, valid):
+        """Flat indices ``(B * 8T,)``, per-occurrence weights, and the
+        ``valid`` mask broadcast to occurrences (``None`` without a mask).
+        A masked occurrence gets index 0 and, in :meth:`_scatter_add`, zero
+        in every channel, its count included: entry 0 only ever receives
+        exact zeros, and the count-normalised mean is unaffected."""
+        n = boards.shape[0]
+        idx = self.indices_batch(boards).reshape(-1)
+        w = w_board[:, None].expand(n, self.n_features).reshape(-1)
+        keep = None
+        if valid is not None:
+            keep = valid[:, None].expand(n, self.n_features).reshape(-1)
+            idx = torch.where(keep, idx, 0)
+        return idx, w, keep
+
+    def _scatter2(self, boards, w_board, valid):
+        idx, w, keep = self._flat_updates(boards, w_board, valid)
+        return self._scatter_add(idx, (w, torch.ones_like(w)), keep)
+
+    def _scatter3(self, boards, w_board, valid):
+        idx, w, keep = self._flat_updates(boards, w_board, valid)
+        return self._scatter_add(idx, (w, w.abs(), torch.ones_like(w)), keep)
+
+    def _scatter_add(self, idx, payloads, keep=None):
+        """Scatter-add each scalar channel of ``payloads`` at the shared flat
+        ``idx`` into a zero table-sized array: one ``index_add_`` per
+        channel, as the JAX module's "scatter" mode has one scatter per
+        channel. Its "rows" mode (one-hot 128-lane rows, for the TPU) gives
+        the same sums and takes this path too."""
+        if keep is not None:
+            payloads = tuple(torch.where(keep, p, 0.0) for p in payloads)
+        return tuple(torch.zeros(self.table_size, dtype=torch.float32, device=idx.device)
+                     .index_add_(0, idx, p) for p in payloads)
+
 
 def make_network(arch: str, n_vals: int = 16, thresholds: tuple[int, ...] = (),
-                 value_impl: str = "gather") -> NTupleNetwork:
+                 value_impl: str = "gather", update_impl: str = "scatter"
+                 ) -> NTupleNetwork:
     """Build a named layout (see :data:`LAYOUTS`)."""
     if arch not in LAYOUTS:
         raise ValueError(f"unknown n-tuple layout {arch!r}; choose from "
                          f"{sorted(LAYOUTS)}")
-    return NTupleNetwork(LAYOUTS[arch], n_vals, thresholds, value_impl=value_impl)
+    return NTupleNetwork(LAYOUTS[arch], n_vals, thresholds, value_impl=value_impl,
+                         update_impl=update_impl)

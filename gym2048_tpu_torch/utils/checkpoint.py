@@ -1,7 +1,7 @@
-"""Load the JAX package's saved models and table artifacts with numpy alone.
+"""Save and load the JAX package's model files, and load its table artifacts.
 
-Counterpart of the loaders in ``gym2048_tpu/utils/checkpoint.py``:
-:func:`load_model` (a pickle of numpy arrays, ``save_model``'s format) and
+Counterpart of ``gym2048_tpu/utils/checkpoint.py``'s one-shot model files:
+:func:`save_model` and :func:`load_model` (a pickle of numpy arrays) and
 :func:`load_array_bf16` (the ``bf16_zlib_v1`` artifacts of
 ``save_array_bf16``, such as the committed n-tuple tables). bf16 is the
 top half of an f32, so the artifact is decoded without ``ml_dtypes``: each
@@ -18,6 +18,29 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+import torch
+
+
+def _to_host(tree: Any) -> Any:
+    """Every leaf of nested dicts, lists and tuples as a numpy array (a
+    tensor is copied to the host first)."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def save_model(path: str | Path, variables: Any, meta: dict | None = None) -> None:
+    """Pickle ``{"variables": variables as numpy, "meta": meta}`` to ``path``,
+    the layout of the JAX package's ``save_model``, which its
+    ``load_model`` and :func:`load_model` read."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"variables": _to_host(variables), "meta": meta or {}}, f)
 
 
 def load_model(path: str | Path) -> tuple[Any, dict]:

@@ -97,6 +97,21 @@ def test_action_values_match_jax(depth):
     np.testing.assert_array_equal(actions.numpy(), np.asarray(want).argmax(-1))
 
 
+def test_action_values_depth3_matches_jax():
+    """Depth 3 runs the port's per-slice loop over the 32 spawn slices; two
+    boards of 11 tiles keep the JAX search cheap."""
+    rng = np.random.default_rng(21)
+    b = np.zeros((2, 16), np.int8)
+    for row in b:
+        row[rng.choice(16, 11, replace=False)] = rng.integers(1, 8, 11)
+    b = b.reshape(2, 4, 4)
+    want = jax.jit(jax.vmap(partial(jx.action_values, depth=3)))(jnp.asarray(b))
+    got = tx.action_values(torch.from_numpy(b), 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_array_equal(got.numpy().argmax(-1), np.asarray(want).argmax(-1))
+    assert (got > tx._NEG).sum() >= 4  # legal moves were searched
+
+
 @pytest.mark.parametrize("plies, beam, map_spawn", [
     (1, False, True), (2, False, True), (2, True, True),
     (3, False, True), (3, True, True), (3, True, False)])
