@@ -31,6 +31,13 @@ counts:
   unstaged 4x6 TC config of ``docs/curves/td_4x6_tc_run.jsonl`` must reach
   an episode score inside the band that the JAX runs bracket.
 
+Before the paths, the single-step kernels are held bit for bit against
+their plain versions on 65,536 boards of eight families (random, exponents
+15-17, dead, full with merges only, one legal direction, boards where only
+the spawn can win, early game) and timed at four sizes, from 1,024 boards to
+1,048,576, past the L2; the registers of the built library
+(``cuobjdump -res-usage``) give blocks per SM and waves.
+
 Each phase prints one line with its seconds; any failed check raises, so
 the exit code is non-zero. Without CUDA it exits non-zero before printing
 any result: it never runs on the CPU.
@@ -44,6 +51,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +77,10 @@ TIMED_RUNS = 5            # bench.py SAMPLES
 # the shortest path a thread can take, so the bound is a lower bound).
 MEM_BYTES_PER_S = 3.35e12
 ISSUE_PER_S = 132 * 128 * 1.98e9
+# An sm_90 SM holds 65,536 registers, given out to warps in units of 256,
+# at most 64 warps and 32 blocks (the CUDA occupancy rules); the step
+# kernels use no shared memory.
+SM_REGISTERS, REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
 
 FUSED_SOURCE = "gym2048_tpu_torch/csrc/fused_step.cu"
 GATHER_SOURCE = "gym2048_tpu_torch/csrc/table_gather.cu"
@@ -84,6 +97,10 @@ KERNELS = {
     "gather_values": ("gym2048_tpu/models/pallas_table.py:101", GATHER_SOURCE,
                       "gather4_kernel"),
 }
+# Threads per block of the fused library's kernels, as their launchers in
+# fused_step.cu set them (kStepThreads, kThreads).
+BLOCK_THREADS = {"fused_move": 128, "fused_step_uniform": 128, "fused_rollout": 256,
+                 "random_uniform_rows": 256}
 # The paths that drive the kernels, each read with its own launch counts:
 # the engine's rollout, the step-by-step replay that runs the single-step
 # kernels on the rollout's own uniforms, and the n-tuple agent.
@@ -168,10 +185,11 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int) -> float:
+def graph_ms(fn, reps: int, samples: int = 5) -> float:
     """Device time of one call of ``fn`` in ms: ``reps`` calls captured in one
-    CUDA graph and replayed between two events, which leaves out the host's
-    cost of each call (checks, allocation, the ctypes call)."""
+    CUDA graph, the graph replayed ``samples`` times between two events
+    each, and the median replay over ``reps``. The graph leaves out the
+    host's cost of each call (checks, allocation, the ctypes call)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -180,25 +198,105 @@ def graph_ms(fn, reps: int) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[samples // 2]
+
+
+def bound_terms(ops: float, nbytes: float) -> tuple[float, float]:
+    """The issue time of ``ops`` thread instructions and the memory time of
+    ``nbytes``, in ms."""
+    return ops / ISSUE_PER_S * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """Least time in ms for ``ops`` thread instructions and ``nbytes`` of
     memory traffic, and which of the two bounds it."""
-    t_ops, t_bytes = ops / ISSUE_PER_S * 1e3, nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops, t_bytes = bound_terms(ops, nbytes)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def resource_usage(text: str) -> dict[str, dict[str, int]]:
+    """Kernel -> its fields (``REG``, ``STACK``, ``LOCAL``, ...) in the
+    ``cuobjdump -res-usage`` listing of a built library: the registers and
+    stack frame ptxas gave each kernel that is launched."""
+    from gym2048_tpu_torch._sass import short_name
+
+    usage, current = {}, None
+    for line in text.splitlines():
+        if m := re.match(r"\s*Function (\S+?):?\s*$", line):
+            current = short_name(m.group(1))
+        elif current and (fields := re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", line)):
+            usage[current], current = {k: int(v) for k, v in fields}, None
+    return usage
+
+
+def blocks_per_sm(registers: int, threads: int) -> int:
+    """Blocks of ``threads`` threads that one SM holds at ``registers``
+    registers a thread."""
+    warps = math.ceil(threads / 32)
+    per_warp = math.ceil(registers * 32 / REG_UNIT) * REG_UNIT
+    return min(SM_REGISTERS // per_warp // warps, SM_WARPS // warps, SM_BLOCKS)
 
 
 def random_boards(rng, n: int, max_exp: int, p_zero: float) -> np.ndarray:
     exps = rng.integers(0, max_exp + 1, size=(n, 4, 4))
     return np.where(rng.random((n, 4, 4)) < p_zero, 0, exps).astype(np.int8)
+
+
+def dead_boards(rng, n: int) -> np.ndarray:
+    """Full boards with no move: cell (r, c) holds exponent number
+    (r + 2c) % 4 of four distinct exponents from 1-17, so no two
+    neighbours are equal."""
+    palette = rng.random((n, 17)).argsort(axis=1)[:, :4] + 1
+    r, c = np.indices((4, 4))
+    return palette[:, (r + 2 * c) % 4].astype(np.int8)
+
+
+BOARD_FAMILIES = ("random 0-17", "random 0-12", "exponents 15-17", "dead",
+                  "full, merge only", "one legal direction", "no 1 or 2",
+                  "early game")
+
+
+def adversarial_boards(rng, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` boards of the families of ``BOARD_FAMILIES``, in eight equal
+    runs, and each board's family: random boards of exponents 0-17 and
+    0-12; tiles of exponents 15-17 only (merges to 17 and 18); dead boards;
+    full boards whose only moves are merges (a dead board with one cell
+    copied into a neighbour); boards with exactly one legal direction (a
+    dead board with its first 1-3 rows emptied, turned a random number of
+    quarter turns); boards with no tile of exponent 1 or 2, where a win at
+    ``max_tile_exp`` 1 or 2 can come only from the spawn; and early-game
+    boards."""
+    k = n // 8
+    sizes = [n - 7 * k] + [k] * 7
+    fam = []
+    fam.append(random_boards(rng, sizes[0], 17, 0.35))
+    fam.append(random_boards(rng, k, 12, 0.4))
+    fam.append(np.where(rng.random((k, 4, 4)) < 0.3, 0,
+                        rng.integers(15, 18, size=(k, 4, 4))).astype(np.int8))
+    fam.append(dead_boards(rng, k))
+    full = dead_boards(rng, k)
+    rows, cols = rng.integers(0, 4, k), rng.integers(0, 3, k)
+    across = rng.random(k) < 0.5  # copy into the right neighbour, else the one below
+    src = full[np.arange(k), np.where(across, rows, cols), np.where(across, cols, rows)]
+    full[np.arange(k), np.where(across, rows, cols + 1), np.where(across, cols + 1, rows)] = src
+    fam.append(full)
+    one = dead_boards(rng, k)
+    one[np.arange(4)[None, :] < rng.integers(1, 4, k)[:, None]] = 0
+    turns = rng.integers(0, 4, k)
+    fam.append(np.stack([np.rot90(b, t) for b, t in zip(one, turns)]).astype(np.int8))
+    no12 = rng.integers(3, 18, size=(k, 4, 4))
+    fam.append(np.where(rng.random((k, 4, 4)) < 0.5, 0, no12).astype(np.int8))
+    fam.append(random_boards(rng, k, 6, 0.6))
+    return np.concatenate(fam), np.repeat(np.arange(8), sizes)
 
 
 def leaf_afterstates(boards: torch.Tensor) -> torch.Tensor:
@@ -378,15 +476,16 @@ class Smoke:
 
     # 2
     def build(self) -> str:
-        from gym2048_tpu_torch import _build
-
-        from gym2048_tpu_torch import _sass
+        from gym2048_tpu_torch import _build, _sass
 
         paths = _build.build_all()
         self.issue = {}
         for name, path in paths.items():
             _build.library(name)
             self.issue.update(_sass.issue_counts(_sass.dump(path)))
+        listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(paths["fused_step"])],
+                                 capture_output=True, text=True, check=True).stdout
+        self.usage = resource_usage(listing)
         counts = {name: self.issue[sass] for name, (_, _, sass) in KERNELS.items()}
         return (f"{', '.join(p.name for p in paths.values())}, one nvcc "
                 f"{' '.join(_build.NVCC_FLAGS)} per source, started together; "
@@ -395,6 +494,26 @@ class Smoke:
                                                   if c.per_iteration else "")
                             for k, c in counts.items())
                 + f"; gather1_kernel {self.issue['gather1_kernel'].outside}")
+
+    # 2b
+    def registers(self) -> str:
+        """Registers, stack, blocks per SM and waves of the fused library's
+        kernels, from ``cuobjdump -res-usage`` of the built library."""
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        parts = []
+        for name, threads in BLOCK_THREADS.items():
+            kernel = KERNELS[name][2]
+            check(kernel in self.usage, f"no resource usage for {kernel}")
+            regs, stack = self.usage[kernel]["REG"], self.usage[kernel]["STACK"]
+            per_sm = blocks_per_sm(regs, threads)
+            text = (f"{kernel} {regs} registers, {stack} B stack, blocks of {threads}: "
+                    f"{per_sm} blocks ({per_sm * threads // 32} warps) per SM")
+            if name in ("fused_move", "fused_step_uniform"):
+                waves = [math.ceil(math.ceil(b / threads) / (per_sm * sms)) for b in (SMALL_B, FULL_B)]
+                text += (f", {math.ceil(SMALL_B / threads)} blocks = {waves[0]} wave(s) at "
+                         f"B={SMALL_B}, {waves[1]} at B={FULL_B}")
+            parts.append(text)
+        return f"cuobjdump -res-usage, {sms} SMs: " + "; ".join(parts)
 
     def ops(self, kernel: str, threads: int, iterations: int = 0) -> int:
         """Thread instructions ``threads`` threads of ``kernel`` issue at least."""
@@ -409,57 +528,109 @@ class Smoke:
         check(torch.equal(got, self.fs.philox4x32_reference(ctr, key)), "Philox vs plain")
         return "3 Random123 known answers match, kernel == plain"
 
+    def time_sizes(self, name: str, fn, small: tuple, nbytes_per_board: float,
+                   extra_bytes: float = 0.0) -> str:
+        """Device ms of ``fn(*small)`` in a CUDA graph at B = SMALL_B (the
+        row's number, into the kernels record) and at three more sizes, the
+        inputs cut or tiled: SMALL_B / 64, where every board is in flight at
+        once (the fixed cost of a launch); 2 * SMALL_B, whose working set,
+        like SMALL_B's, stays in the 50 MB L2 across a replay (the two give
+        the per-board cost there and the intercept); and FULL_B, past the
+        L2, where the bytes come from HBM. ``extra_bytes`` is data-dependent
+        traffic at SMALL_B, scaled with B."""
+        ms = {}
+        for b in (SMALL_B // 64, SMALL_B, 2 * SMALL_B, FULL_B):
+            args = tuple(t[..., :b].contiguous() if b <= SMALL_B
+                         else t.repeat(*([1] * (t.dim() - 1)), b // SMALL_B) for t in small)
+            ms[b] = graph_ms(lambda: fn(*args), 100 if b <= 2 * SMALL_B else 20)
+            del args
+        rec = self.kernels[name]
+        rec["ms"] = ms[SMALL_B]
+        rec["bound_ms"], rec["bound_by"] = bound(
+            self.ops(name, SMALL_B), SMALL_B * nbytes_per_board + extra_bytes)
+        l2_per_board = (ms[2 * SMALL_B] - ms[SMALL_B]) / SMALL_B
+        intercept_us = (ms[SMALL_B] - SMALL_B * l2_per_board) * 1e3
+        terms = {b: bound_terms(self.ops(name, b), b * nbytes_per_board + extra_bytes * b / SMALL_B)
+                 for b in (SMALL_B, FULL_B)}
+        return (f"device ms " + ", ".join(f"{ms[b]:.5f} at B={b}" for b in ms)
+                + f"; B={SMALL_B}: bound {rec['bound_ms']:.5f} ({rec['bound_by']}; issue "
+                f"{terms[SMALL_B][0]:.5f}, bytes {terms[SMALL_B][1]:.5f}), share "
+                f"{rec['bound_ms'] / rec['ms']:.3f}; B={FULL_B}: issue {terms[FULL_B][0]:.5f}, "
+                f"bytes {terms[FULL_B][1]:.5f}, share {max(terms[FULL_B]) / ms[FULL_B]:.3f}, "
+                f"{FULL_B * nbytes_per_board / ms[FULL_B] / 1e9:.3f} TB/s; fixed cost "
+                f"{ms[SMALL_B // 64] * 1e3:.3f} us (B={SMALL_B // 64}), L2-resident "
+                f"{l2_per_board * 1e9:.3f} us per million boards + {intercept_us:.3f} us, "
+                f"HBM {ms[FULL_B] / FULL_B * 1e9:.3f} us per million boards")
+
     # 4
     def fused_move(self) -> str:
         fs = self.fs
-        boards = torch.as_tensor(random_boards(self.rng, SMALL_B, 17, 0.35), device=self.dev)
-        cm = fs.to_cell_major(boards)
-        err = 0.0
+        boards, family = adversarial_boards(self.rng, SMALL_B)
+        cm = self.step_cm = fs.to_cell_major(torch.as_tensor(boards, device=self.dev))
+        err, legal = 0.0, []
         for a in range(4):
             act = torch.full((SMALL_B,), a, dtype=torch.int32, device=self.dev)
-            err = max(err, max_abs_err(fs.fused_move(cm, act), fs.fused_move_reference(cm, act)))
+            want = fs.fused_move_reference(cm, act)
+            err = max(err, max_abs_err(fs.fused_move(cm, act), want))
+            legal.append(want[2].cpu().numpy())
+        # actions outside 0..2 act as 3
+        odd = torch.as_tensor(self.rng.integers(-2, 7, SMALL_B, dtype=np.int32), device=self.dev)
+        err = max(err, max_abs_err(fs.fused_move(cm, odd), fs.fused_move_reference(cm, odd)))
         check(err == 0.0, f"fused_move differs from plain by {err}")
         self.kernels["fused_move"]["max_abs_err"] = err
+        # the families are what they claim to be
+        n_legal = np.sum(legal, axis=0)
+        full = (cm != 0).all(0).cpu().numpy()
+        fam = {f: family == i for i, f in enumerate(BOARD_FAMILIES)}
+        check((n_legal[fam["dead"]] == 0).all() and full[fam["dead"]].all(), "a 'dead' board moves")
+        check((n_legal[fam["one legal direction"]] == 1).all(), "a 'one legal' board has not one")
+        check(full[fam["full, merge only"]].all() and (n_legal[fam["full, merge only"]] > 0).all(),
+              "a 'full, merge only' board is not full or cannot move")
+        self.n_legal = n_legal
         act = torch.as_tensor(self.rng.integers(0, 4, SMALL_B, dtype=np.int32), device=self.dev)
-        rec = self.kernels["fused_move"]
-        rec["ms"] = graph_ms(lambda: fs.fused_move(cm, act), 100)
         call_ms = event_ms(lambda: fs.fused_move(cm, act), 100)
-        rec["plain_ms"] = event_ms(lambda: fs.fused_move_reference(cm, act), 5)
+        plain_ms = event_ms(lambda: fs.fused_move_reference(cm, act), 5)
+        self.kernels["fused_move"]["plain_ms"] = plain_ms
         # read: board, action; write: board, score, legal
-        rec["bound_ms"], rec["bound_by"] = bound(self.ops("fused_move", SMALL_B),
-                                                 SMALL_B * (64 + 4 + 64 + 4 + 4))
-        return (f"{SMALL_B} boards, exponents 0-17, 4 actions: bit-exact (tolerance 0); "
-                f"kernel {rec['ms']:.4f} ms on the device, {call_ms:.4f} ms per call "
-                f"from Python; plain {rec['plain_ms']:.3f} ms")
+        timing = self.time_sizes("fused_move", fs.fused_move, (cm, act), 64 + 4 + 64 + 4 + 4)
+        return (f"{SMALL_B} boards ({', '.join(BOARD_FAMILIES)}; {int((n_legal == 0).sum())} "
+                f"dead, {int((n_legal == 1).sum())} with one legal direction), 4 actions and "
+                f"actions -2..6: bit-exact (tolerance 0); random actions: {timing}; "
+                f"{call_ms:.4f} ms per call from Python; plain {plain_ms:.3f} ms")
 
     # 5
     def fused_step_uniform(self) -> str:
         fs = self.fs
-        boards = random_boards(self.rng, SMALL_B, 12, 0.4)
-        boards[:64] = np.array([[1, 2, 3, 4], [5, 6, 7, 8]] * 2, np.int8)  # dead
-        cm = fs.to_cell_major(torch.as_tensor(boards, device=self.dev))
+        cm = self.step_cm  # phase 4's boards
         u = torch.as_tensor(self.rng.random((8, SMALL_B), dtype=np.float32), device=self.dev)
-        err, finished = 0.0, []
-        for mte in (0, 11):
+        dead = torch.as_tensor(self.n_legal == 0, device=self.dev)
+        err, wins = 0.0, {}
+        for mte in (0, 2, 11, 17):
             got = fs.fused_step_uniform(cm, u, max_tile_exp=mte)
-            want = fs.fused_step_uniform_reference(cm, u, mte)
-            err = max(err, max_abs_err(got, want))
-            finished.append(int(got[2].sum().item()))
-        wins = finished[1] - finished[0]
+            err = max(err, max_abs_err(got, fs.fused_step_uniform_reference(cm, u, mte)))
+            won = (got[2] == 1) & ~dead
+            # a win the move did not make: the spawn placed the tile
+            before_spawn = fs.fused_move_reference(cm, got[3])[0]
+            by_spawn = won & ~(before_spawn == mte).any(0)
+            wins[mte] = (int(won.sum().item()), int(by_spawn.sum().item()))
+            if mte == 0:
+                check(torch.equal(got[2] == 1, dead), "finished boards are not the dead ones")
         check(err == 0.0, f"fused_step_uniform differs from plain by {err}")
         self.kernels["fused_step_uniform"]["max_abs_err"] = err
-        check(wins > 0, "no board won with max_tile_exp=11")
-        rec = self.kernels["fused_step_uniform"]
-        rec["ms"] = graph_ms(lambda: fs.fused_step_uniform(cm, u), 100)
+        check(wins[2][1] > 0, "no win by spawn with max_tile_exp=2")
+        check(wins[11][0] > 0 and wins[17][0] > 0, f"no win with max_tile_exp 11 or 17: {wins}")
         call_ms = event_ms(lambda: fs.fused_step_uniform(cm, u), 100)
-        rec["plain_ms"] = event_ms(lambda: fs.fused_step_uniform_reference(cm, u), 5)
+        plain_ms = event_ms(lambda: fs.fused_step_uniform_reference(cm, u), 5)
+        self.kernels["fused_step_uniform"]["plain_ms"] = plain_ms
         # read: board and u rows 0-2, rows 3-4 only where a board resets
-        # (max_tile_exp 0, as timed); write: board, score, finished, action
-        nbytes = SMALL_B * (64 + 12 + 64 + 12) + finished[0] * 8
-        rec["bound_ms"], rec["bound_by"] = bound(self.ops("fused_step_uniform", SMALL_B), nbytes)
-        return (f"{SMALL_B} boards, max_tile_exp 0 and 11 ({wins} won): bit-exact "
-                f"(tolerance 0); kernel {rec['ms']:.4f} ms on the device, {call_ms:.4f} ms "
-                f"per call from Python; plain {rec['plain_ms']:.3f} ms")
+        # (max_tile_exp 0, as timed: the dead boards); write: board, score,
+        # finished, action
+        resets = int(dead.sum().item())
+        timing = self.time_sizes("fused_step_uniform", fs.fused_step_uniform, (cm, u),
+                                 64 + 12 + 64 + 12, extra_bytes=8 * resets)
+        return (f"{SMALL_B} boards of phase 4, max_tile_exp 0, 2, 11, 17 (wins, of them by "
+                f"the spawn: {wins}): bit-exact (tolerance 0); max_tile_exp 0, {resets} resets: "
+                f"{timing}; {call_ms:.4f} ms per call from Python; plain {plain_ms:.3f} ms")
 
     # 6
     def fused_rollout_small(self) -> str:
@@ -1018,6 +1189,7 @@ def main() -> int:
     smoke = Smoke()
     smoke.run("1", "device", smoke.device)
     smoke.run("2", "build", smoke.build)
+    smoke.run("2b", "registers", smoke.registers)
     smoke.run("3", "philox", smoke.philox)
     smoke.run("4", "fused_move", smoke.fused_move)
     smoke.run("5", "fused_step_uniform", smoke.fused_step_uniform)

@@ -12,23 +12,41 @@
 // int32 (exponents above 15 occur in real games, so cells are not packed into
 // nibbles). Boards are cell-major [16, B] int32 as in the JAX module, so
 // thread b reads board[c * B + b] and neighbouring threads touch neighbouring
-// addresses. The TPU kernel's static row shuffles (_cell) and whole-tile
-// selects (_select4) become compile-time register indexing after full
-// unrolling; its prefix count over empty cells (a 16x16 triangular matmul on
-// the MXU) becomes a 16-step running count. The rollout loops over its steps
-// inside the thread and writes each board once, so a launch reads 64 bytes
-// and writes 76 bytes per board whatever the number of steps.
+// addresses.
 //
-// What bounds it on an H100. fused_rollout, fused_step_uniform and
-// fused_move are integer ALU work: a step is well over a thousand SASS
+// Two step algorithms live here side by side.
+//
+// * The single-step kernels (fused_move, fused_step_uniform) move one board
+//   in one direction. fused_step_uniform reads the legality of the four
+//   directions from the board's 24 adjacent pairs (legal_from_pairs) without
+//   moving it, picks the action, and then moves only in that direction:
+//   the board is brought into the frame where that move is a leftward shift
+//   of rows by a conditional transpose and a conditional mirror (selects,
+//   no branch on the action, which differs across a warp), its four rows
+//   are compacted and merged once (slide_line), and the frame is undone.
+//   fused_move moves in the direction it is given; its legality is whether
+//   that move changed the board. Each is launched in blocks of kStepThreads.
+// * fused_rollout still runs the first design, the TPU kernel's: each step
+//   computes all four moves in full (compute_moves: 16 shift_line
+//   compactions and merges) and picks the chosen board with select4. Its
+//   device functions (cell, select4, shift_line, compute_moves,
+//   move_and_spawn) serve only the rollout until it moves to the new step.
+//   The rollout loops over its steps inside the thread and writes each
+//   board once, so a launch reads 64 bytes and writes 76 bytes per board
+//   whatever the number of steps. The TPU kernel's prefix count over empty
+//   cells (a 16x16 triangular matmul on the MXU) becomes a 16-step running
+//   count (spawn, shared by both designs).
+//
+// What bounds it on an H100. A rollout step is well over a thousand SASS
 // instructions per board (compact, merge and legality of 16 lines, action
 // choice, spawn, ten Philox rounds; gym2048_tpu_torch/_sass.py counts them
-// in the built library) against 140-152 bytes of memory traffic per board
-// per launch. The rollout is therefore bound by the rate at which the card
-// issues instructions; the single-step kernels by that rate or by their
-// bytes, whichever is larger. random_uniform_rows is bound by the bytes it
-// writes. A grid of
-// ceil(B / 256) blocks of 256 threads; each kernel masks its ragged edge.
+// in the built library) against 140 bytes of memory traffic per board per
+// launch, so the rollout is bound by the rate at which the card issues
+// instructions. The single-step kernels move 140-152 bytes per board per
+// launch; with one move per board their instructions take less time than
+// those bytes, so they are bound by memory. random_uniform_rows is bound by
+// the bytes it writes. The rollout, random_uniform_rows and the Philox test
+// kernel run in blocks of kThreads; each kernel masks its ragged edge.
 //
 // Numbers: no fast math. The action index trunc(u * n_legal) and the spawn
 // index floor(u * n_empty) are f32 products followed by truncation, as in
@@ -43,6 +61,15 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The single-step kernels' blocks: B = 65,536 boards make 512 blocks of 4
+// warps, one wave over 132 SMs at 3-4 blocks (12-16 warps, 3-4 per
+// scheduler) each. That needs 4 blocks per SM, which the launch bounds ask
+// for (at most 128 registers a thread). Under them ptxas gives fused_move
+// 54 registers and fused_step_uniform 64; with no minimum it gives
+// fused_move 38, and that code took 1.16x as long at 65,536 boards on an
+// H100 80GB HBM3 (700 W).
+constexpr int kStepThreads = 128;
+constexpr int kStepMinBlocks = 4;
 
 struct Words {
   uint32_t x, y, z, w;
@@ -223,7 +250,152 @@ __device__ __forceinline__ void store_board(const int (&b)[16],
   for (int c = 0; c < 16; ++c) board[c * n + i] = b[c];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---- the single-step kernels: legality from pairs, one move per board ----
+
+// Legality of the four directions (up, right, down, left) read from the
+// board's 24 adjacent pairs, without moving it. A line moves toward its
+// position 0 if and only if some adjacent pair, read in that order, is
+// (empty, tile) or two equal tiles. Bit i of each mask is cell i.
+__device__ __forceinline__ void legal_from_pairs(const int (&b)[16],
+                                                 bool (&legal)[4]) {
+  constexpr unsigned kRowPairs = 0x7777u;  // cells with a right neighbour
+  constexpr unsigned kColPairs = 0x0FFFu;  // cells with a neighbour below
+  unsigned tile = 0, same_right = 0, same_below = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    tile |= static_cast<unsigned>(b[i] != 0) << i;
+    if (i % 4 < 3) same_right |= static_cast<unsigned>(b[i] == b[i + 1]) << i;
+    if (i < 12) same_below |= static_cast<unsigned>(b[i] == b[i + 4]) << i;
+  }
+  const unsigned empty = ~tile & 0xFFFFu;
+  const unsigned merge_row = same_right & tile & kRowPairs;
+  const unsigned merge_col = same_below & tile & kColPairs;
+  legal[0] = ((empty & (tile >> 4) & kColPairs) | merge_col) != 0;
+  legal[1] = ((tile & (empty >> 1) & kRowPairs) | merge_row) != 0;
+  legal[2] = ((tile & (empty >> 4) & kColPairs) | merge_col) != 0;
+  legal[3] = ((empty & (tile >> 1) & kRowPairs) | merge_row) != 0;
+}
+
+__device__ __forceinline__ void swap_if(bool p, int& x, int& y) {
+  const int t = p ? y : x;
+  y = p ? x : y;
+  x = t;
+}
+
+// Brings direction d's lines into the rows of b, each read from its
+// position 0, so that the move becomes a leftward shift of every row:
+// row l of the result is line l of d (cell(d, l, k) of the rollout's
+// design). Up and down transpose, right and down mirror the rows. Each
+// step is a select on the direction, never a branch.
+__device__ __forceinline__ void to_line_frame(int (&b)[16], int d) {
+  const bool transpose = (d & 1) == 0, mirror = d == 1 || d == 2;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = r + 1; c < 4; ++c) swap_if(transpose, b[4 * r + c], b[4 * c + r]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    swap_if(mirror, b[4 * r], b[4 * r + 3]);
+    swap_if(mirror, b[4 * r + 1], b[4 * r + 2]);
+  }
+}
+
+// The inverse of to_line_frame: the mirror first, then the transpose.
+__device__ __forceinline__ void from_line_frame(int (&b)[16], int d) {
+  const bool transpose = (d & 1) == 0, mirror = d == 1 || d == 2;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    swap_if(mirror, b[4 * r], b[4 * r + 3]);
+    swap_if(mirror, b[4 * r + 1], b[4 * r + 2]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = r + 1; c < 4; ++c) swap_if(transpose, b[4 * r + c], b[4 * c + r]);
+  }
+}
+
+// If x is empty, y moves into it.
+__device__ __forceinline__ void pull(int& x, int& y) {
+  const bool e = x == 0;
+  x = e ? y : x;
+  y = e ? 0 : y;
+}
+
+// Compact and merge one line leftward in place (rules._compact_merge_rows),
+// add the merge score and return whether the line changed. The compaction
+// bubbles the empty cells to the end in six conditional moves; the merge is
+// the rule's single pass over the compacted line.
+__device__ __forceinline__ bool slide_line(int& a0, int& a1, int& a2, int& a3,
+                                           int& score) {
+  int c0 = a0, c1 = a1, c2 = a2, c3 = a3;
+  pull(c0, c1);
+  pull(c1, c2);
+  pull(c2, c3);
+  pull(c0, c1);
+  pull(c1, c2);
+  pull(c0, c1);
+  const bool m01 = c0 != 0 && c0 == c1;
+  const bool m12 = c1 != 0 && c1 == c2 && !m01;
+  const bool m23 = c2 != 0 && c2 == c3 && !m12;
+  const int o0 = c0 + m01;
+  const int o1 = m01 ? c2 + m23 : c1 + m12;
+  const int o2 = m01 ? (m23 ? 0 : c3) : (m12 ? c3 : c2 + m23);
+  const int o3 = (m01 || m12 || m23) ? 0 : c3;
+  score += (m01 ? 1 << (c0 + 1) : 0) + (m12 ? 1 << (c1 + 1) : 0) +
+           (m23 ? 1 << (c2 + 1) : 0);
+  const bool changed = o0 != a0 || o1 != a1 || o2 != a2 || o3 != a3;
+  a0 = o0;
+  a1 = o1;
+  a2 = o2;
+  a3 = o3;
+  return changed;
+}
+
+// Moves board b in direction d (0 up, 1 right, 2 down, 3 left) in place,
+// adds the merge score and returns whether the board changed.
+__device__ __forceinline__ bool move_one(int (&b)[16], int d, int& score) {
+  to_line_frame(b, d);
+  bool changed = false;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    changed |= slide_line(b[4 * l], b[4 * l + 1], b[4 * l + 2], b[4 * l + 3], score);
+  }
+  from_line_frame(b, d);
+  return changed;
+}
+
+// The random-legal step of move_and_spawn, one move per board: the same
+// action (the r-th legal direction, r = trunc(u_act * n_legal) clamped, 0
+// for a dead board), score, spawn and finish flag.
+__device__ __forceinline__ int step_one(int (&b)[16], float u_act, float u_pos,
+                                        float u_val, int max_tile_exp,
+                                        int& move_score, bool& finish) {
+  bool legal[4];
+  legal_from_pairs(b, legal);
+  const int n_legal = legal[0] + legal[1] + legal[2] + legal[3];
+  int r = static_cast<int>(u_act * static_cast<float>(n_legal));
+  r = min(r, max(n_legal - 1, 0));
+  int action = 0, cum = 0;
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    action = legal[d] && cum == r ? d : action;
+    cum += legal[d];
+  }
+  move_score = 0;
+  move_one(b, action, move_score);  // a dead board does not change
+  spawn(b, u_pos, u_val);
+  bool won = false;
+  if (max_tile_exp > 0) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) won |= b[i] == max_tile_exp;
+  }
+  finish = n_legal == 0 || won;
+  return action;
+}
+
+__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks)
 fused_move_kernel(const int* __restrict__ board, const int* __restrict__ action,
                   int* __restrict__ out, int* __restrict__ score_out,
                   int* __restrict__ legal_out, long long n) {
@@ -231,22 +403,18 @@ fused_move_kernel(const int* __restrict__ board, const int* __restrict__ action,
   if (i >= n) return;
   int b[16];
   load_board(b, board, i, n);
-  int moved[4][16];
-  int score[4];
-  bool legal[4];
-  compute_moves(b, moved, score, legal);
   const int a = action[i];
-  const int ok = select4<int>(a, legal[0], legal[1], legal[2], legal[3]);
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    const int m = select4(a, moved[0][c], moved[1][c], moved[2][c], moved[3][c]);
-    out[c * n + i] = ok ? m : b[c];
-  }
-  score_out[i] = ok ? select4(a, score[0], score[1], score[2], score[3]) : 0;
-  legal_out[i] = ok;
+  // any action outside 0..2 acts as 3 (pallas_step._select4); a move that
+  // changes nothing scores nothing and leaves the board as it was
+  const int d = static_cast<unsigned>(a) < 3u ? a : 3;
+  int score = 0;
+  const bool legal = move_one(b, d, score);
+  store_board(b, out, i, n);
+  score_out[i] = score;
+  legal_out[i] = legal;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kStepThreads, kStepMinBlocks)
 fused_step_uniform_kernel(const int* __restrict__ board,
                           const float* __restrict__ u, int* __restrict__ out,
                           float* __restrict__ score_out,
@@ -257,11 +425,11 @@ fused_step_uniform_kernel(const int* __restrict__ board,
   if (i >= n) return;
   int b[16];
   load_board(b, board, i, n);
-  const float u_act = u[i], u_pos = u[n + i], u_val = u[2 * n + i];
+  const float u_pos = u[n + i], u_val = u[2 * n + i];
   int move_score;
   bool finish;
   const int action =
-      move_and_spawn(b, u_act, u_pos, u_val, max_tile_exp, move_score, finish);
+      step_one(b, u[i], u_pos, u_val, max_tile_exp, move_score, finish);
   if (finish) fresh_board(b, u_pos, u_val, u[3 * n + i], u[4 * n + i]);
   store_board(b, out, i, n);
   score_out[i] = finish ? 0.0f : static_cast<float>(move_score);
@@ -346,8 +514,8 @@ philox4x32_kernel(const uint32_t* __restrict__ counter,
   out[4 * i + 3] = w.w;
 }
 
-unsigned grid_for(long long work) {
-  return static_cast<unsigned>((work + kThreads - 1) / kThreads);
+unsigned grid_for(long long work, int threads = kThreads) {
+  return static_cast<unsigned>((work + threads - 1) / threads);
 }
 
 }  // namespace
@@ -358,7 +526,7 @@ extern "C" {
 
 int gym_fused_move(const void* board, const void* action, void* out,
                    void* score, void* legal, long long n, void* stream) {
-  fused_move_kernel<<<grid_for(n), kThreads, 0,
+  fused_move_kernel<<<grid_for(n, kStepThreads), kStepThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(board), static_cast<const int*>(action),
       static_cast<int*>(out), static_cast<int*>(score),
@@ -369,7 +537,7 @@ int gym_fused_move(const void* board, const void* action, void* out,
 int gym_fused_step_uniform(const void* board, const void* u, void* out,
                            void* score, void* finished, void* action,
                            long long n, int max_tile_exp, void* stream) {
-  fused_step_uniform_kernel<<<grid_for(n), kThreads, 0,
+  fused_step_uniform_kernel<<<grid_for(n, kStepThreads), kStepThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(board), static_cast<const float*>(u),
       static_cast<int*>(out), static_cast<float*>(score),
