@@ -31,10 +31,11 @@ counts:
   unstaged 4x6 TC config of ``docs/curves/td_4x6_tc_run.jsonl`` must reach
   an episode score inside the band that the JAX runs bracket.
 
-Before the paths, the single-step kernels are held bit for bit against
-their plain versions on 65,536 boards of eight families (random, exponents
-15-17, dead, full with merges only, one legal direction, boards where only
-the spawn can win, early game) and timed at four sizes, from 1,024 boards to
+Before the paths, the single-step kernels, and the rollout for 32 steps,
+are held bit for bit against their plain versions on 65,536 boards of
+eight families (random, exponents 15-17, dead, full with merges only, one
+legal direction, boards where only the spawn can win, early game); the
+single-step kernels are timed at four sizes, from 1,024 boards to
 1,048,576, past the L2; the registers of the built library
 (``cuobjdump -res-usage``) give blocks per SM and waves.
 
@@ -81,6 +82,14 @@ ISSUE_PER_S = 132 * 128 * 1.98e9
 # at most 64 warps and 32 blocks (the CUDA occupancy rules); the step
 # kernels use no shared memory.
 SM_REGISTERS, REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
+# Fixed yardsticks for the rollout, which its own bound (counted from the
+# SASS of the code that runs) cannot be: the issue bound of the first
+# rollout kernel, whose step computed all four moves (1,400 SASS
+# instructions a step; NVIDIA H100 80GB HBM3, 700 W), and that bound scaled
+# by 672 / 1,536, the SASS of a whole fused_step_uniform launch on the one-
+# move step against the four-move one's.
+ROLLOUT_BOUND_4MOVE_MS = 44.939
+ROLLOUT_BOUND_1MOVE_EST_MS = 44.939 * 672 / 1536
 
 FUSED_SOURCE = "gym2048_tpu_torch/csrc/fused_step.cu"
 GATHER_SOURCE = "gym2048_tpu_torch/csrc/table_gather.cu"
@@ -98,8 +107,8 @@ KERNELS = {
                       "gather4_kernel"),
 }
 # Threads per block of the fused library's kernels, as their launchers in
-# fused_step.cu set them (kStepThreads, kThreads).
-BLOCK_THREADS = {"fused_move": 128, "fused_step_uniform": 128, "fused_rollout": 256,
+# fused_step.cu set them (kStepThreads, kRolloutThreads, kThreads).
+BLOCK_THREADS = {"fused_move": 128, "fused_step_uniform": 128, "fused_rollout": 128,
                  "random_uniform_rows": 256}
 # The paths that drive the kernels, each read with its own launch counts:
 # the engine's rollout, the step-by-step replay that runs the single-step
@@ -512,6 +521,10 @@ class Smoke:
                 waves = [math.ceil(math.ceil(b / threads) / (per_sm * sms)) for b in (SMALL_B, FULL_B)]
                 text += (f", {math.ceil(SMALL_B / threads)} blocks = {waves[0]} wave(s) at "
                          f"B={SMALL_B}, {waves[1]} at B={FULL_B}")
+            if name == "fused_rollout":
+                blocks = math.ceil(FULL_B / threads)
+                text += (f", {blocks} blocks = {blocks / (per_sm * sms):.2f} waves at B={FULL_B} "
+                         f"({blocks / sms:.2f} blocks per SM)")
             parts.append(text)
         return f"cuobjdump -res-usage, {sms} SMs: " + "; ".join(parts)
 
@@ -634,6 +647,9 @@ class Smoke:
 
     # 6
     def fused_rollout_small(self) -> str:
+        """The rollout against its plain version on random boards, and for
+        32 steps from phase 4's eight families (exponents up to 17, dead
+        and merge-only boards, wins by the spawn) at four win exponents."""
         fs = self.fs
         cm = fs.to_cell_major(torch.as_tensor(
             random_boards(self.rng, 4096, 6, 0.6), device=self.dev))
@@ -644,7 +660,17 @@ class Smoke:
         plain_s = time.perf_counter() - t0
         err = max_abs_err(got, want)
         check(err == 0.0, f"fused_rollout differs from plain by {err}")
-        return f"B=4096 T=64: bit-exact in all 4 outputs; plain {plain_s * 1e3:.1f} ms"
+        episodes = {}
+        for mte in (0, 2, 11, 17):
+            got = fs.fused_rollout(self.step_cm, SEED + mte, 32, 1024, mte)
+            err = max_abs_err(got, fs.fused_rollout_reference(self.step_cm, SEED + mte, 32, mte))
+            check(err == 0.0, f"fused_rollout on the families at max_tile_exp {mte} differs "
+                  f"from plain by {err}")
+            episodes[mte] = int(got[2].sum().item())
+            check(episodes[mte] > 0, f"no episode ended at max_tile_exp {mte}")
+        return (f"B=4096 T=64: bit-exact in all 4 outputs; plain {plain_s * 1e3:.1f} ms; "
+                f"phase 4's {SMALL_B} boards x 32 steps at max_tile_exp 0, 2, 11, 17 "
+                f"(episodes {episodes}): bit-exact in all 4 outputs")
 
     # 7
     def random_uniform_rows_small(self) -> str:
@@ -678,9 +704,13 @@ class Smoke:
         check(distinct > 0.9 * FULL_B, f"{distinct} distinct final boards")
         self.full_out = (board, score, episodes, total)
         self.leaf_roots = fs.from_cell_major(board[:, :LEAF_BOARDS].contiguous())
+        # sums of the four outputs, to hold two trees' rollouts side by side
+        checksum = (board.sum(dtype=torch.int64).item(), eps,
+                    score.double().sum().item(), total.double().sum().item())
         return (f"rollout B={FULL_B} T={FULL_T}: episode length {ep_len:.2f}, "
-                f"score/step {per_step:.3f}, {distinct} distinct boards; "
-                f"launches {self.path_launches['rollout']}")
+                f"score/step {per_step:.3f}, {distinct} distinct boards; checksum (board, "
+                f"episodes, score, total) {checksum[0]} {checksum[1]} {checksum[2]!r} "
+                f"{checksum[3]!r}; launches {self.path_launches['rollout']}")
 
     # 8b
     def step_replay(self) -> str:
@@ -697,6 +727,7 @@ class Smoke:
             rtotal = torch.zeros(n, dtype=torch.float32, device=self.dev)
             reps = torch.zeros(n, dtype=torch.int32, device=self.dev)
             bad = torch.zeros((), dtype=torch.int64, device=self.dev)
+            warp_resets = torch.zeros((), dtype=torch.int64, device=self.dev)
             for t in range(FULL_T):
                 new, s, fin, act = fs.fused_step_uniform(rb, u_all[8 * t:8 * t + 8])
                 moved, ms, legal = fs.fused_move(rb, act)
@@ -710,17 +741,22 @@ class Smoke:
                 rscore = torch.where(fin == 1, 0.0, rscore + s)
                 rtotal = rtotal + s
                 reps = reps + fin
+                # warps of the rollout (32 neighbouring boards) with a reset
+                warp_resets += fin.view(-1, 32).any(1).sum()
                 rb = new
-            return rb, rscore, reps, rtotal, bad
+            return rb, rscore, reps, rtotal, bad, warp_resets
 
-        rb, rscore, reps, rtotal, bad = self.drive("step replay", replay)
+        rb, rscore, reps, rtotal, bad, warp_resets = self.drive("step replay", replay)
         check(bad.item() == 0, f"{bad.item()} replayed steps broke the move check")
         board, score, episodes, total = self.full_out
         err = max_abs_err((rb, rscore, reps, rtotal),
                           (board[:, :n], score[:n], episodes[:n], total[:n]))
         check(err == 0.0, f"step replay differs from the rollout by {err}")
+        warp_share = warp_resets.item() / (n // 32 * FULL_T)
         return (f"{n} boards x {FULL_T} steps: bit-exact against the rollout, "
-                f"every move checked; launches {self.path_launches['step replay']}")
+                f"every move checked; resets in {reps.sum().item() / (n * FULL_T):.5f} of "
+                f"board-steps and {warp_share:.4f} of warp-steps (the rollout's reset "
+                f"branch); launches {self.path_launches['step replay']}")
 
     # 8c: times and the plain versions at the main path's shapes
     def main_path_measure(self) -> str:
@@ -764,11 +800,18 @@ class Smoke:
         threads = (shape[0] + 3) // 4 * shape[1]
         urec["bound_ms"], urec["bound_by"] = bound(self.ops("random_uniform_rows", threads),
                                                    4 * shape[0] * shape[1])
+        count = self.issue[KERNELS["fused_rollout"][2]]
         return (f"{rate:.6e} steps/s (median of {TIMED_RUNS}, "
                 f"spread {FULL_B * FULL_T / times[-1]:.6e}-{FULL_B * FULL_T / times[0]:.6e}) "
-                f"on {self.smi}; rollout kernel {rec['ms']:.3f} ms vs plain {rec['plain_ms']:.1f} ms, "
-                f"bit-exact; uniform rows {shape} kernel {urec['ms']:.4f} ms vs plain "
-                f"{urec['plain_ms']:.1f} ms, bit-exact")
+                f"on {self.smi}; rollout kernel {rec['ms']:.3f} ms (spread "
+                f"{times[0] * 1e3:.3f}-{times[-1] * 1e3:.3f}) vs plain {rec['plain_ms']:.1f} ms, "
+                f"bit-exact; {count.per_iteration} SASS instructions per step + "
+                f"{count.outside}: bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), share "
+                f"{rec['bound_ms'] / rec['ms']:.3f}; against the four-move step's bound "
+                f"{ROLLOUT_BOUND_4MOVE_MS:.3f} ms {ROLLOUT_BOUND_4MOVE_MS / rec['ms']:.3f}, "
+                f"against its one-move estimate {ROLLOUT_BOUND_1MOVE_EST_MS:.3f} ms "
+                f"{ROLLOUT_BOUND_1MOVE_EST_MS / rec['ms']:.3f}; uniform rows {shape} kernel "
+                f"{urec['ms']:.4f} ms vs plain {urec['plain_ms']:.1f} ms, bit-exact")
 
     # 9
     def batched_env(self) -> str:

@@ -324,7 +324,8 @@ def fused_move(boards_cm: torch.Tensor, actions: torch.Tensor, block: int = 2048
     illegal move leaves the board unchanged with score 0
     (``pallas_step.fused_move``). ``block`` is there for the JAX signature:
     B must be a multiple of ``min(block, B)`` as there, but the launch
-    does not depend on it (blocks of 256 threads, one board each)."""
+    does not depend on it (blocks of ``kStepThreads``, 128 threads, one
+    board each)."""
     n = _check_boards(boards_cm)
     _check_block(n, block)
     _check("actions", actions, torch.int32, (n,), boards_cm.device)
@@ -371,7 +372,9 @@ def fused_rollout(boards_cm: torch.Tensor, seed: int, steps: int,
     """Run ``steps`` steps of random-legal self-play with auto-reset
     (``pallas_step.fused_rollout``). Dead boards, and with
     ``max_tile_exp > 0`` boards holding that tile, are reset with two spawns
-    and counted as episodes.
+    and counted as episodes. The kernel runs all the steps of a board in
+    one thread, each the step of :func:`fused_step_uniform` on that step's
+    Philox uniforms, and writes the board once.
 
     Args:
         boards_cm: ``[16, B]`` int32 cell-major boards; B must be a multiple

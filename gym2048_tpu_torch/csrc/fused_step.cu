@@ -14,39 +14,36 @@
 // thread b reads board[c * B + b] and neighbouring threads touch neighbouring
 // addresses.
 //
-// Two step algorithms live here side by side.
+// One step algorithm serves fused_step_uniform and fused_rollout (step_one),
+// and fused_move moves with the same code. The legality of the four
+// directions is read from the board's 24 adjacent pairs (legal_from_pairs)
+// without moving it; the action is picked from them; the board is moved in
+// that direction only: a conditional transpose and a conditional mirror
+// (selects, no branch on the action, which differs across a warp) bring
+// the direction into the frame where the move is a leftward shift of rows,
+// its four rows are compacted and merged once (slide_line), and the frame
+// is undone (move_one). Then one spawn: the TPU kernel's prefix count over
+// empty cells (a 16x16 triangular matmul on the MXU) becomes a 16-step
+// running count. fused_move moves in the direction it is given; its
+// legality is whether that move changed the board.
 //
-// * The single-step kernels (fused_move, fused_step_uniform) move one board
-//   in one direction. fused_step_uniform reads the legality of the four
-//   directions from the board's 24 adjacent pairs (legal_from_pairs) without
-//   moving it, picks the action, and then moves only in that direction:
-//   the board is brought into the frame where that move is a leftward shift
-//   of rows by a conditional transpose and a conditional mirror (selects,
-//   no branch on the action, which differs across a warp), its four rows
-//   are compacted and merged once (slide_line), and the frame is undone.
-//   fused_move moves in the direction it is given; its legality is whether
-//   that move changed the board. Each is launched in blocks of kStepThreads.
-// * fused_rollout still runs the first design, the TPU kernel's: each step
-//   computes all four moves in full (compute_moves: 16 shift_line
-//   compactions and merges) and picks the chosen board with select4. Its
-//   device functions (cell, select4, shift_line, compute_moves,
-//   move_and_spawn) serve only the rollout until it moves to the new step.
-//   The rollout loops over its steps inside the thread and writes each
-//   board once, so a launch reads 64 bytes and writes 76 bytes per board
-//   whatever the number of steps. The TPU kernel's prefix count over empty
-//   cells (a 16x16 triangular matmul on the MXU) becomes a 16-step running
-//   count (spawn, shared by both designs).
-//
-// What bounds it on an H100. A rollout step is well over a thousand SASS
-// instructions per board (compact, merge and legality of 16 lines, action
-// choice, spawn, ten Philox rounds; gym2048_tpu_torch/_sass.py counts them
-// in the built library) against 140 bytes of memory traffic per board per
-// launch, so the rollout is bound by the rate at which the card issues
-// instructions. The single-step kernels move 140-152 bytes per board per
-// launch; with one move per board their instructions take less time than
-// those bytes, so they are bound by memory. random_uniform_rows is bound by
-// the bytes it writes. The rollout, random_uniform_rows and the Philox test
-// kernel run in blocks of kThreads; each kernel masks its ragged edge.
+// What bounds each kernel on an H100. The rollout loops over its steps
+// inside the thread and writes each board once, so a launch reads 64 bytes
+// and writes 76 bytes per board whatever the number of steps, against 563
+// SASS instructions per board and step (the step and ten Philox rounds;
+// gym2048_tpu_torch/_sass.py counts them in the built library): it is
+// bound by the rate at which the card issues instructions, so its design
+// cuts instructions (one move, not four) and keeps 32 warps per SM without
+// a spill to hide their latency (kRolloutThreads). A reset runs in a
+// branch: it takes a second Philox block and fresh_board, once in about
+// 112 steps of a board but in 0.22 of the steps of a warp; computed on
+// every step instead it made a step 695 instructions and the launch 1.2x
+// as long (an H100 80GB HBM3 at 700 W). The single-step kernels move
+// 140-152 bytes per board per launch; with one move per board their
+// instructions take less time than those bytes, so they are bound by
+// memory, and launch in blocks of kStepThreads. random_uniform_rows is
+// bound by the bytes it writes; it and the Philox test kernel run in
+// blocks of kThreads. Each kernel masks its ragged edge.
 //
 // Numbers: no fast math. The action index trunc(u * n_legal) and the spawn
 // index floor(u * n_empty) are f32 products followed by truncation, as in
@@ -70,6 +67,18 @@ constexpr int kThreads = 256;
 // H100 80GB HBM3 (700 W).
 constexpr int kStepThreads = 128;
 constexpr int kStepMinBlocks = 4;
+// The rollout's blocks. The launch bounds cap ptxas at 64 registers a
+// thread, so that an SM holds 8 blocks of 4 warps: 32 warps, 8 per
+// scheduler, to hide the dependent chains of Philox and the move. Tried in
+// one call on an H100 80GB HBM3 (700 W), at B = 1,048,576 x 1024 steps:
+// (256, 4) and (128, 8) give the same 62-register code, 32.25 and 31.71
+// ms; both run 7.76 waves, but an SM gets at most 63 blocks of 128 (8,064
+// boards) or 32 of 256 (8,192) against 7,944 on average, and that tail,
+// at most one block per SM at any B, is the 1.7%. With no minimum (another
+// call) ptxas gave 75 registers, 3 blocks of 256 (24 warps), and the time
+// of (256, 4), which then spilled 8 B.
+constexpr int kRolloutThreads = 128;
+constexpr int kRolloutMinBlocks = 8;
 
 struct Words {
   uint32_t x, y, z, w;
@@ -94,91 +103,28 @@ __device__ __forceinline__ float to_uniform(uint32_t w) {
   return static_cast<float>(w >> 8) * 5.9604644775390625e-8f;  // 2^-24
 }
 
-// Cell of (direction, line, position k in the line), so that every move is
-// a leftward shift of the positions (pallas_step._cell).
-__host__ __device__ constexpr int cell(int d, int l, int k) {
-  return d == 0 ? 4 * k + l
-       : d == 1 ? 4 * l + (3 - k)
-       : d == 2 ? 4 * (3 - k) + l
-                : 4 * l + k;
+// The spawn's rule: it fills empty cell number
+// min(floor(u_pos * n_empty), max(n_empty - 1, 0)) (f32, as the TPU kernel)
+// with exponent 1 (u_val < 0.9f) or 2.
+__device__ __forceinline__ int spawn_rank(float u_pos, int n_empty) {
+  const float nf = static_cast<float>(n_empty);
+  return static_cast<int>(fminf(floorf(u_pos * nf), fmaxf(nf - 1.0f, 0.0f)));
 }
 
-template <typename T>
-__device__ __forceinline__ T select4(int v, T t0, T t1, T t2, T t3) {
-  return v == 0 ? t0 : v == 1 ? t1 : v == 2 ? t2 : t3;
+__device__ __forceinline__ int spawn_value(float u_val) {
+  return u_val < 0.9f ? 1 : 2;
 }
 
-// Compact and merge one line leftward (rules._compact_merge_rows). Writes
-// the line back in place, adds the merge score and returns whether the
-// line changed.
-__device__ __forceinline__ bool shift_line(int& a0, int& a1, int& a2, int& a3,
-                                           int& score) {
-  const int a[4] = {a0, a1, a2, a3};
-  int pos[4];
-  pos[0] = 0;
-  pos[1] = a[0] != 0;
-  pos[2] = pos[1] + (a[1] != 0);
-  pos[3] = pos[2] + (a[2] != 0);
-  int c[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    c[k] = 0;
-#pragma unroll
-    for (int j = k; j < 4; ++j) {
-      if (a[j] != 0 && pos[j] == k) c[k] = a[j];
-    }
-  }
-  const bool m01 = c[0] != 0 && c[0] == c[1];
-  const bool m12 = c[1] != 0 && c[1] == c[2] && !m01;
-  const bool m23 = c[2] != 0 && c[2] == c[3] && !m12;
-  const int o0 = c[0] + m01;
-  const int o1 = m01 ? c[2] + m23 : c[1] + m12;
-  const int o2 = m01 ? (m23 ? 0 : c[3]) : (m12 ? c[3] : c[2] + m23);
-  const int o3 = (m01 || m12 || m23) ? 0 : c[3];
-  score += (m01 ? 1 << (c[0] + 1) : 0) + (m12 ? 1 << (c[1] + 1) : 0) +
-           (m23 ? 1 << (c[2] + 1) : 0);
-  const bool changed = o0 != a0 || o1 != a1 || o2 != a2 || o3 != a3;
-  a0 = o0;
-  a1 = o1;
-  a2 = o2;
-  a3 = o3;
-  return changed;
-}
-
-// The four moves of board b: moved[d][cell], merge score and legality per
-// direction (pallas_step._compute_moves).
-__device__ __forceinline__ void compute_moves(const int (&b)[16],
-                                              int (&moved)[4][16],
-                                              int (&score)[4],
-                                              bool (&legal)[4]) {
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    score[d] = 0;
-    legal[d] = false;
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      int x0 = b[cell(d, l, 0)], x1 = b[cell(d, l, 1)];
-      int x2 = b[cell(d, l, 2)], x3 = b[cell(d, l, 3)];
-      legal[d] |= shift_line(x0, x1, x2, x3, score[d]);
-      moved[d][cell(d, l, 0)] = x0;
-      moved[d][cell(d, l, 1)] = x1;
-      moved[d][cell(d, l, 2)] = x2;
-      moved[d][cell(d, l, 3)] = x3;
-    }
-  }
-}
-
-// Spawn exponent 1 (u_val < 0.9f) or 2 at empty cell number
-// min(floor(u_pos * n_empty), max(n_empty - 1, 0)) in row-major order; a
-// full board is unchanged (pallas_step._spawn_cm: position first).
+// One spawn on board b, empty cells counted in row-major order; a full
+// board is unchanged (pallas_step._spawn_cm: position first). A 16-bit
+// empty mask with a popc search for the cell took more instructions (657
+// a rollout step against 563).
 __device__ __forceinline__ void spawn(int (&b)[16], float u_pos, float u_val) {
   int n_empty = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) n_empty += b[i] == 0;
-  const float nf = static_cast<float>(n_empty);
-  const float kf = fminf(floorf(u_pos * nf), fmaxf(nf - 1.0f, 0.0f));
-  const int target = static_cast<int>(kf) + 1;
-  const int val = u_val < 0.9f ? 1 : 2;
+  const int target = spawn_rank(u_pos, n_empty) + 1;
+  const int val = spawn_value(u_val);
   int seen = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -188,52 +134,19 @@ __device__ __forceinline__ void spawn(int (&b)[16], float u_pos, float u_val) {
   }
 }
 
-// Random-legal move and spawn (the first half of pallas_step._step_cm):
-// picks the r-th legal direction with r = trunc(u_act * n_legal), clamped,
-// moves and spawns in place. Returns the action (0 for a dead board, which
-// is left unchanged with move score 0) and sets finish for a dead board or,
-// when max_tile_exp > 0, a board that holds that tile after the spawn.
-__device__ __forceinline__ int move_and_spawn(int (&b)[16], float u_act,
-                                              float u_pos, float u_val,
-                                              int max_tile_exp,
-                                              int& move_score, bool& finish) {
-  int moved[4][16];
-  int score[4];
-  bool legal[4];
-  compute_moves(b, moved, score, legal);
-  const int n_legal = legal[0] + legal[1] + legal[2] + legal[3];
-  int r = static_cast<int>(u_act * static_cast<float>(n_legal));
-  r = min(r, max(n_legal - 1, 0));
-  int action = 0, cum = 0;
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    if (legal[d] && cum == r) action = d;
-    cum += legal[d];
-  }
-  move_score = select4(action, score[0], score[1], score[2], score[3]);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    b[i] = select4(action, moved[0][i], moved[1][i], moved[2][i], moved[3][i]);
-  }
-  spawn(b, u_pos, u_val);
-  bool won = false;
-  if (max_tile_exp > 0) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) won |= b[i] == max_tile_exp;
-  }
-  finish = n_legal == 0 || won;
-  return action;
-}
-
 // A reset board: two spawns on an empty board, from uniform rows 1-2 (the
-// step's own spawn uniforms) and 3-4.
+// step's own spawn uniforms) and 3-4. On an empty board empty cell number
+// k is cell k, and once the first tile is at c1, cell k below c1 and cell
+// k + 1 from c1 on, so no cell needs a count.
 __device__ __forceinline__ void fresh_board(int (&b)[16], float u_pos,
                                             float u_val, float u_pos2,
                                             float u_val2) {
+  const int c1 = spawn_rank(u_pos, 16);
+  int c2 = spawn_rank(u_pos2, 15);
+  c2 += c2 >= c1;
+  const int v1 = spawn_value(u_val), v2 = spawn_value(u_val2);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) b[i] = 0;
-  spawn(b, u_pos, u_val);
-  spawn(b, u_pos2, u_val2);
+  for (int i = 0; i < 16; ++i) b[i] = i == c1 ? v1 : i == c2 ? v2 : 0;
 }
 
 __device__ __forceinline__ void load_board(int (&b)[16],
@@ -284,8 +197,8 @@ __device__ __forceinline__ void swap_if(bool p, int& x, int& y) {
 
 // Brings direction d's lines into the rows of b, each read from its
 // position 0, so that the move becomes a leftward shift of every row:
-// row l of the result is line l of d (cell(d, l, k) of the rollout's
-// design). Up and down transpose, right and down mirror the rows. Each
+// row l of the result is line l of d (pallas_step._cell(d, l, k)). Up and
+// down transpose, right and down mirror the rows. Each
 // step is a select on the direction, never a branch.
 __device__ __forceinline__ void to_line_frame(int (&b)[16], int d) {
   const bool transpose = (d & 1) == 0, mirror = d == 1 || d == 2;
@@ -366,9 +279,12 @@ __device__ __forceinline__ bool move_one(int (&b)[16], int d, int& score) {
   return changed;
 }
 
-// The random-legal step of move_and_spawn, one move per board: the same
-// action (the r-th legal direction, r = trunc(u_act * n_legal) clamped, 0
-// for a dead board), score, spawn and finish flag.
+// One random-legal step (the first half of pallas_step._step_cm), one move
+// per board: picks the r-th legal direction with r = trunc(u_act * n_legal),
+// clamped, moves and spawns in place. Returns the action (0 for a dead
+// board, which is left unchanged with move score 0) and sets finish for a
+// dead board or, when max_tile_exp > 0, a board that holds that tile after
+// the spawn (the whole board: an input board may already hold it).
 __device__ __forceinline__ int step_one(int (&b)[16], float u_act, float u_pos,
                                         float u_val, int max_tile_exp,
                                         int& move_score, bool& finish) {
@@ -437,7 +353,7 @@ fused_step_uniform_kernel(const int* __restrict__ board,
   action_out[i] = action;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRolloutThreads, kRolloutMinBlocks)
 fused_rollout_kernel(const int* __restrict__ board, uint32_t seed, int steps,
                      int max_tile_exp, int* __restrict__ out,
                      float* __restrict__ score_out,
@@ -450,19 +366,27 @@ fused_rollout_kernel(const int* __restrict__ board, uint32_t seed, int steps,
   float score = 0.0f, total = 0.0f;
   int episodes = 0;
   const uint32_t idx = static_cast<uint32_t>(i);
+  // one step per iteration: _sass.py and chip_smoke.py count it so
+#pragma unroll 1
   for (int t = 0; t < steps; ++t) {
-    const Words w = philox4x32_10(Words{idx, static_cast<uint32_t>(t), 0u, 0u},
+    // Rounds 1-3 of Philox depend partly on the board index alone. Hoisted
+    // out of the loop they held four registers, and under the 64-register
+    // cap ptxas spilled two (8 B of stack, two local loads a step); the
+    // empty asm hides that ctr == idx, so they are recomputed each step, at
+    // no cost in instructions.
+    uint32_t ctr = idx;
+    asm volatile("" : "+r"(ctr));
+    const Words w = philox4x32_10(Words{ctr, static_cast<uint32_t>(t), 0u, 0u},
                                   seed, 0u);
     const float u_pos = to_uniform(w.y), u_val = to_uniform(w.z);
     int move_score;
     bool finish;
-    move_and_spawn(b, to_uniform(w.x), u_pos, u_val, max_tile_exp, move_score,
-                   finish);
+    step_one(b, to_uniform(w.x), u_pos, u_val, max_tile_exp, move_score, finish);
     const float gained = static_cast<float>(move_score);
     if (finish) {
       // the second Philox block is drawn only where a reset needs row 4
       const Words w1 = philox4x32_10(
-          Words{idx, static_cast<uint32_t>(t), 1u, 0u}, seed, 0u);
+          Words{ctr, static_cast<uint32_t>(t), 1u, 0u}, seed, 0u);
       fresh_board(b, u_pos, u_val, to_uniform(w.w), to_uniform(w1.x));
       score = 0.0f;
       episodes += 1;
@@ -549,7 +473,7 @@ int gym_fused_step_uniform(const void* board, const void* u, void* out,
 int gym_fused_rollout(const void* board, uint32_t seed, int steps,
                       int max_tile_exp, void* out, void* score,
                       void* episodes, void* total, long long n, void* stream) {
-  fused_rollout_kernel<<<grid_for(n), kThreads, 0,
+  fused_rollout_kernel<<<grid_for(n, kRolloutThreads), kRolloutThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(board), seed, steps, max_tile_exp,
       static_cast<int*>(out), static_cast<float*>(score),

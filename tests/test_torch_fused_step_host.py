@@ -1,4 +1,4 @@
-"""The single-step CUDA kernels' own code, compiled for the host with g++.
+"""The step CUDA kernels' own code, compiled for the host with g++.
 
 ``gym2048_tpu_torch/csrc/fused_step.cu`` keeps its device code (everything
 inside its anonymous namespace) free of CUDA-only constructs but a few
@@ -11,7 +11,9 @@ kernels' logic on the CPU, not what ``nvcc`` makes of it; chip_smoke.py
 holds the built kernels against the same plain versions on the card.
 ``fused_move`` is checked over every line of exponents 0-17 in a row and
 in a column, in all four directions; ``fused_step_uniform`` on the board
-families of chip_smoke.py at four win exponents.
+families of chip_smoke.py at four win exponents; ``fused_rollout`` (its
+Philox stream included) on random boards, on the families at four win
+exponents and from empty boards long enough for resets.
 """
 
 import itertools
@@ -54,28 +56,35 @@ using std::min;
 using std::max;
 """
 
-# kernel [move|step] n max_tile_exp < boards (int32 16*n) [actions (int32 n) | u (f32 8*n)]
+# kernel [move|step|rollout] n max_tile_exp seed steps
+#   < boards (int32 16*n) [actions (int32 n) | u (f32 8*n)]
 HARNESS = """
 int main(int argc, char** argv) {
-  const bool move = argv[1][0] == 'm';
+  const char kind = argv[1][0];
   const long long n = atoll(argv[2]);
   const int max_tile_exp = atoi(argv[3]);
+  const uint32_t seed = static_cast<uint32_t>(strtoul(argv[4], nullptr, 10));
+  const int steps = atoi(argv[5]);
   std::vector<int> board(16 * n), out(16 * n), action(n), a(n), b(n);
-  std::vector<float> u(8 * n), score(n);
+  std::vector<float> u(8 * n), score(n), total(n);
   fread(board.data(), 4, 16 * n, stdin);
-  if (move) fread(action.data(), 4, n, stdin); else fread(u.data(), 4, 8 * n, stdin);
+  if (kind == 'm') fread(action.data(), 4, n, stdin);
+  if (kind == 's') fread(u.data(), 4, 8 * n, stdin);
   for (long long i = 0; i < n; ++i) {
     blockIdx.x = static_cast<unsigned>(i);
-    if (move)
+    if (kind == 'm')
       fused_move_kernel(board.data(), action.data(), out.data(), a.data(), b.data(), n);
-    else
+    else if (kind == 's')
       fused_step_uniform_kernel(board.data(), u.data(), out.data(), score.data(),
                                 a.data(), b.data(), n, max_tile_exp);
+    else
+      fused_rollout_kernel(board.data(), seed, steps, max_tile_exp, out.data(),
+                           score.data(), a.data(), total.data(), n);
   }
   fwrite(out.data(), 4, 16 * n, stdout);
-  if (!move) fwrite(score.data(), 4, n, stdout);
+  if (kind != 'm') fwrite(score.data(), 4, n, stdout);
   fwrite(a.data(), 4, n, stdout);
-  fwrite(b.data(), 4, n, stdout);
+  fwrite(kind == 'r' ? static_cast<const void*>(total.data()) : b.data(), 4, n, stdout);
 }
 """
 
@@ -94,15 +103,18 @@ def harness(tmp_path_factory):
     return exe
 
 
-def run(exe, kernel: str, cm: torch.Tensor, extra: np.ndarray, max_tile_exp: int = 0):
+def run(exe, kernel: str, cm: torch.Tensor, extra: np.ndarray, max_tile_exp: int = 0,
+        seed: int = 0, steps: int = 0):
     n = cm.shape[1]
-    done = subprocess.run([str(exe), kernel, str(n), str(max_tile_exp)],
+    done = subprocess.run([str(exe), kernel, str(n), str(max_tile_exp), str(seed), str(steps)],
                           input=cm.numpy().astype(np.int32).tobytes() + extra.tobytes(),
                           capture_output=True, check=True).stdout
     out = np.frombuffer(done, np.int32)
     board, rest = out[:16 * n].reshape(16, n), out[16 * n:]
     if kernel == "move":
         return board, rest[:n], rest[n:]
+    if kernel == "rollout":  # board, score, episodes, total
+        return board, rest[:n].view(np.float32), rest[n:2 * n], rest[2 * n:].view(np.float32)
     return board, rest[:n].view(np.float32), rest[n:2 * n], rest[2 * n:]
 
 
@@ -147,3 +159,37 @@ def test_fused_step_uniform_kernel_on_board_families(harness, max_tile_exp):
         np.testing.assert_array_equal(g, w.numpy())
     finished = got[2] == 1
     assert finished.any() and not finished.all()
+
+
+def rollout_matches_plain(exe, cm: torch.Tensor, seed: int, steps: int, max_tile_exp: int = 0):
+    """The rollout kernel's four outputs, each equal bit for bit to the plain
+    version's; returns the episodes."""
+    got = run(exe, "rollout", cm, np.zeros(0, np.int32), max_tile_exp, seed, steps)
+    want = fs.fused_rollout_reference(cm, seed, steps, max_tile_exp)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    return got[2]
+
+
+def test_fused_rollout_kernel_on_random_boards(harness):
+    boards = chip_smoke.random_boards(np.random.default_rng(21), 4096, 6, 0.6)
+    cm = fs.to_cell_major(torch.as_tensor(boards.astype(np.int32)))
+    rollout_matches_plain(harness, cm, 5, 64)
+
+
+@pytest.mark.parametrize("max_tile_exp", [0, 2, 11, 17])
+def test_fused_rollout_kernel_on_board_families(harness, max_tile_exp):
+    boards, _ = chip_smoke.adversarial_boards(np.random.default_rng(30 + max_tile_exp), 16384)
+    cm = fs.to_cell_major(torch.as_tensor(boards.astype(np.int32)))
+    episodes = rollout_matches_plain(harness, cm, 1000 + max_tile_exp, 32, max_tile_exp)
+    # boards finished, and not all equally often (at max_tile_exp 2 every
+    # board reaches a 2 within 32 steps, some of them more than once)
+    assert episodes.max() > 0 and episodes.min() < episodes.max()
+
+
+def test_fused_rollout_kernel_with_resets(harness):
+    """From empty boards past the length of a random game, so that most
+    boards reset at least once, with the seed's high bit set."""
+    cm = torch.zeros((16, 2048), dtype=torch.int32)
+    episodes = rollout_matches_plain(harness, cm, 0x9E3779B9, 300)
+    assert (episodes > 0).mean() > 0.9
