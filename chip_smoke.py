@@ -37,7 +37,10 @@ eight families (random, exponents 15-17, dead, full with merges only, one
 legal direction, boards where only the spawn can win, early game); the
 single-step kernels are timed at four sizes, from 1,024 boards to
 1,048,576, past the L2; the registers of the built library
-(``cuobjdump -res-usage``) give blocks per SM and waves.
+(``cuobjdump -res-usage``) give blocks per SM and waves. The lookup
+kernel is timed on a uniform stream at four sizes, from 1,024 indices to
+67,108,864, and on the agent's, the TD step's and a trained learner's
+stream, each warm (a graph replay) and cold (after a 128 MB write).
 
 Each phase prints one line with its seconds; any failed check raises, so
 the exit code is non-zero. Without CUDA it exits non-zero before printing
@@ -50,6 +53,7 @@ error, times and bound, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -131,6 +135,21 @@ AGENT_MOVE_CAP = 1024      # lockstep moves, so the phase stays near 30 s
 AGENT_CHUNK = 128
 REPLAY_MOVES = 128         # moves replayed with the plain lookup
 GATHER_UNIFORM_N = 1 << 23
+# The uniform stream's sizes: every index in flight at once (the launch);
+# 1,048,576, whose indices, output and table sectors (40 MB) stay in the
+# 50 MB L2 across a graph replay; the agent stream's N and one 8 times
+# larger, which come from HBM.
+GATHER_SIZES = (1 << 10, 1 << 20, GATHER_UNIFORM_N, 1 << 26)
+# Written before each launch of a cold lookup: 2.5 times the L2.
+FLUSH_BYTES = 128 << 20
+# Clock cycles of the spin kernel before each call that alone_ms times
+# (~50 us at 1.98 GHz, longer than the host takes to queue one call).
+SPIN_CYCLES = 100_000
+# Threads per block of the gather kernels (kThreads in table_gather.cu; a
+# test holds gather_launches to the kernel's own launch plan).
+GATHER_THREADS = 256
+# Rounds of the same-call comparison of gather sources (--gather-ab).
+GATHER_AB_ROUNDS = 12
 LEAF_BOARDS = 512          # boards whose depth-2 leaves make the real stream
 TIMING_GAMES = 512         # README: --episodes 512 --depth 2
 
@@ -194,11 +213,8 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int, samples: int = 5) -> float:
-    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in one
-    CUDA graph, the graph replayed ``samples`` times between two events
-    each, and the median replay over ``reps``. The graph leaves out the
-    host's cost of each call (checks, allocation, the ctypes call)."""
+def captured(fn, reps: int):
+    """``reps`` calls of ``fn`` captured in one CUDA graph, replayed once."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -207,16 +223,84 @@ def graph_ms(fn, reps: int, samples: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
+    return graph
+
+
+def replay_ms(graph, reps: int) -> float:
+    """One replay of ``graph`` between two events, in ms over ``reps``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, samples: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in one
+    CUDA graph, the graph replayed ``samples`` times between two events
+    each, and the median replay over ``reps``. The graph leaves out the
+    host's cost of each call (checks, allocation, the ctypes call). From
+    the second call on, whatever of its data fits stays in the L2."""
+    graph = captured(fn, reps)
+    return sorted(replay_ms(graph, reps) for _ in range(samples))[samples // 2]
+
+
+def cold_graph_ms(fn, flush, reps: int, samples: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms after ``flush`` has pushed its
+    data out of the L2: the median replay of ``reps`` pairs (flush, fn) in
+    one graph, minus that of ``reps`` flushes alone in another, the two
+    replayed in turns."""
+    both = captured(lambda: (flush(), fn()), reps)
+    alone = captured(flush, reps)
+    pairs = [(replay_ms(both, reps), replay_ms(alone, reps)) for _ in range(samples)]
+    return (sorted(p[0] for p in pairs)[samples // 2]
+            - sorted(p[1] for p in pairs)[samples // 2])
+
+
+def median_of(measure, times: int = 3) -> float:
+    """The median of ``times`` calls of ``measure``."""
+    return sorted(measure() for _ in range(times))[times // 2]
+
+
+def gather_launches(n: int, idx_ptr: int = 0, out_ptr: int = 0) -> list[tuple[bool, int, int]]:
+    """The launches ``gym_gather_values`` makes for ``n`` indices at these
+    addresses, each (16-byte kernel or not, indices, blocks of
+    ``GATHER_THREADS``): where both pointers lie at one offset modulo 16
+    bytes, the groups of four from the first 16-byte boundary on, then a
+    scalar head and a scalar tail of up to three indices each where there
+    are any; else one index per thread over all ``n``."""
+    def blocks(work: int) -> int:
+        return -(-work // GATHER_THREADS)
+
+    if idx_ptr % 16 != out_ptr % 16:
+        return [(False, n, blocks(n))]
+    head = min(n, (16 - idx_ptr % 16) % 16 // 4)
+    n4 = (n - head) // 4
+    tail = n - head - 4 * n4
+    return ([(True, 4 * n4, blocks(n4))] if n4 else []) + [
+        (False, m, 1) for m in (head, tail) if m]
+
+
+def alone_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms, launched on its own as an
+    eager caller launches it: each call queued behind a spin kernel (which
+    hides the host's time to queue it) between two events of its own; the
+    median over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        graph.replay()
+        fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[samples // 2]
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in events)[reps // 2]
 
 
 def bound_terms(ops: float, nbytes: float) -> tuple[float, float]:
@@ -492,17 +576,19 @@ class Smoke:
         for name, path in paths.items():
             _build.library(name)
             self.issue.update(_sass.issue_counts(_sass.dump(path)))
-        listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(paths["fused_step"])],
-                                 capture_output=True, text=True, check=True).stdout
-        self.usage = resource_usage(listing)
+        self.usage = {}
+        for path in paths.values():
+            listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(path)],
+                                     capture_output=True, text=True, check=True).stdout
+            self.usage.update(resource_usage(listing))
         counts = {name: self.issue[sass] for name, (_, _, sass) in KERNELS.items()}
+        counts["gather1_kernel"] = self.issue["gather1_kernel"]
         return (f"{', '.join(p.name for p in paths.values())}, one nvcc "
                 f"{' '.join(_build.NVCC_FLAGS)} per source, started together; "
                 f"fewest SASS instructions per thread "
-                + ", ".join(f"{k} {c.outside}" + (f" + {c.per_iteration}/step"
+                + ", ".join(f"{k} {c.outside}" + (f" + {c.per_iteration}/iteration"
                                                   if c.per_iteration else "")
-                            for k, c in counts.items())
-                + f"; gather1_kernel {self.issue['gather1_kernel'].outside}")
+                            for k, c in counts.items()))
 
     # 2b
     def registers(self) -> str:
@@ -526,11 +612,114 @@ class Smoke:
                 text += (f", {blocks} blocks = {blocks / (per_sm * sms):.2f} waves at B={FULL_B} "
                          f"({blocks / sms:.2f} blocks per SM)")
             parts.append(text)
+        for kernel in ("gather4_kernel", "gather1_kernel"):
+            check(kernel in self.usage, f"no resource usage for {kernel}")
+            regs, stack = self.usage[kernel]["REG"], self.usage[kernel]["STACK"]
+            # the scalar kernel's launch: index and output 4 bytes apart
+            blocks = {n: gather_launches(n, 0, 0 if kernel == "gather4_kernel" else 4)[0][2]
+                      for n in GATHER_SIZES}
+            per_sm = blocks_per_sm(regs, GATHER_THREADS)
+            parts.append(
+                f"{kernel} {regs} registers, {stack} B stack, blocks of {GATHER_THREADS}: "
+                f"{per_sm} blocks ({per_sm * GATHER_THREADS // 32} warps) per SM, blocks "
+                f"(waves) at N=" + ", ".join(f"{n}: {b} ({b / (per_sm * sms):.2f})"
+                                             for n, b in blocks.items()))
         return f"cuobjdump -res-usage, {sms} SMs: " + "; ".join(parts)
 
     def ops(self, kernel: str, threads: int, iterations: int = 0) -> int:
         """Thread instructions ``threads`` threads of ``kernel`` issue at least."""
         return threads * self.issue[KERNELS[kernel][2]].per_thread(iterations)
+
+    def gather_ops(self, idx: torch.Tensor, out: torch.Tensor) -> int:
+        """Thread instructions the lookup of ``idx`` into ``out`` issues at
+        least: the fewest of a thread, times the threads launched."""
+        ops = 0
+        for vector, _, blocks in gather_launches(idx.numel(), idx.data_ptr(), out.data_ptr()):
+            count = self.issue["gather4_kernel" if vector else "gather1_kernel"]
+            # a kernel with a loop would need its iterations counted as well
+            check(count.per_iteration == 0, "the gather kernels have no loop")
+            ops += blocks * GATHER_THREADS * count.outside
+        return ops
+
+    def measure_gather(self, table: torch.Tensor, idx: torch.Tensor, reps: int = 20,
+                       cold: bool = True, plain: bool = True) -> dict:
+        """The lookup of ``idx`` on ``table``, held bit for bit against the
+        plain version; the kernel's and ``torch.take``'s device time warm
+        (a graph replay) and, with ``cold``, after the L2 is flushed; the
+        plain version's; the distinct 32-B sectors of the stream and the
+        bound (8 B per index, 32 B per distinct sector, the issue term).
+        Each device time is the median of three graphs, each
+        captured anew: where a capture places the outputs moves the time
+        of a small lookup by a few percent."""
+        tg = self.tg
+        got = tg.gather_values(table, idx)
+        want = tg.gather_values_reference(table, idx)
+        err = max_abs_err([got], [want])
+        check(err == 0.0 and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"gather_values differs from plain by {err} at N={idx.numel()}")
+        idx64 = idx.long()
+        n = idx.numel()
+        sectors = torch.unique(idx // 8).numel()
+        r = dict(n=n, max_abs_err=err, sectors=sectors,
+                 ms=median_of(lambda: graph_ms(lambda: tg.gather_values(table, idx), reps)),
+                 library_ms=median_of(lambda: graph_ms(lambda: torch.take(table, idx64), reps)))
+        r["bound_ms"], r["bound_by"] = bound(self.gather_ops(idx, got), 8 * n + 32 * sectors)
+        if cold:
+            flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=self.dev)
+            r["cold_ms"] = median_of(lambda: cold_graph_ms(
+                lambda: tg.gather_values(table, idx), lambda: flush.fill_(1.0), reps))
+            r["library_cold_ms"] = median_of(lambda: cold_graph_ms(
+                lambda: torch.take(table, idx64), lambda: flush.fill_(1.0), reps))
+            del flush
+        if plain:
+            r["plain_ms"] = event_ms(lambda: tg.gather_values_reference(table, idx), 5)
+        del got, want, idx64
+        return r
+
+    def gather_offsets(self, table: torch.Tensor, gen) -> str:
+        """The library's launches for index and output pointers 0-3
+        elements past a 16-byte boundary, each on its own (the 16-byte
+        groups alone, with a scalar head and tail, or the scalar kernel over
+        all), bit for bit against the plain version. The wrapper allocates
+        its output, so the library is called directly here."""
+        from gym2048_tpu_torch import _build
+
+        lib = _build.library("table_gather")
+        n = (1 << 20) + 3
+        idx = torch.randint(0, table.numel(), (n + 3,), generator=gen, device=self.dev,
+                            dtype=torch.int32)
+        out = torch.empty(n + 3, dtype=torch.float32, device=self.dev)
+        for a in range(4):
+            want = torch.take(table, idx[a:a + n].long())
+            for b in range(4):
+                out.fill_(float("nan"))
+                err = lib.gym_gather_values(table.data_ptr(), idx[a:].data_ptr(),
+                                            out[b:].data_ptr(), n,
+                                            torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"launch failed with error {err}")
+                check(torch.equal(out[b:b + n].view(torch.int32), want.view(torch.int32)),
+                      f"gather_values differs from plain at offsets {a}, {b}")
+        return f"N={n} at index and output offsets 0-3 x 0-3 elements: bit-exact"
+
+    @staticmethod
+    def gather_text(r: dict) -> str:
+        text = (f"N={r['n']}: bit-exact, kernel {r['ms']:.5f} ms warm"
+                + (f", {r['cold_ms']:.5f} cold" if "cold_ms" in r else "")
+                + f"; torch.take {r['library_ms']:.5f} warm"
+                + (f", {r['library_cold_ms']:.5f} cold" if "library_cold_ms" in r else "")
+                + (f"; plain {r['plain_ms']:.4f}" if "plain_ms" in r else "")
+                + f"; {r['sectors']} distinct 32-B sectors ({r['sectors'] / r['n']:.4f} per "
+                f"index, {32 * r['sectors'] / r['ms'] / 1e6:.1f} GB/s of them warm); bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}), share {r['bound_ms'] / r['ms']:.3f} warm")
+        if "cold_ms" in r:
+            text += f", {r['bound_ms'] / r['cold_ms']:.3f} cold"
+        return text
+
+    def record_gather(self, r: dict) -> None:
+        """``r`` is the kernels line's row of gather_values."""
+        self.kernels["gather_values"].update(
+            {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")})
 
     # 3
     def philox(self) -> str:
@@ -841,46 +1030,31 @@ class Smoke:
 
     # 11
     def gather_values(self) -> str:
-        """The lookup kernel on the flagship table at full width, on a
-        uniform index stream and on the stream a depth-2 search reads."""
+        """The lookup kernel on the flagship table at full width: a uniform
+        index stream at four sizes, and the stream a depth-2 search reads,
+        warm and cold."""
         from gym2048_tpu_torch.models import ntuple_big
 
-        tg = self.tg
         net = ntuple_big.make_network(AGENT_ARCH, AGENT_N_VALS, AGENT_THRESHOLDS)
         gen = torch.Generator(device=self.dev).manual_seed(SEED)
         table = torch.randn(net.table_size, generator=gen, device=self.dev).mul_(100.0)
         self.net, self.table = net, table
-        streams = {
-            "uniform": torch.randint(0, net.table_size, (GATHER_UNIFORM_N,), generator=gen,
-                                     device=self.dev, dtype=torch.int32),
-            "real": net.indices_batch(leaf_afterstates(self.leaf_roots)).reshape(-1),
-        }
-        check(streams["real"].numel() == LEAF_BOARDS * 512 * net.n_features,
-              f"real stream of {streams['real'].numel()} indices")
         parts = []
-        for label, idx in streams.items():
-            got = tg.gather_values(table, idx)
-            want = tg.gather_values_reference(table, idx)
-            err = max_abs_err([got], [want])
-            check(err == 0.0 and torch.equal(got.view(torch.int32), want.view(torch.int32)),
-                  f"gather_values differs from plain on the {label} stream by {err}")
-            idx64 = idx.long()
-            n = idx.numel()
-            ms = graph_ms(lambda: tg.gather_values(table, idx), 20)
-            lib_ms = graph_ms(lambda: torch.take(table, idx64), 20)
-            plain_ms = event_ms(lambda: tg.gather_values_reference(table, idx), 5)
-            sectors = torch.unique(idx // 8).numel()
-            b_ms, b_by = bound(self.ops("gather_values", n // 4), 8 * n + 32 * sectors)
-            parts.append(f"{label} N={n}: bit-exact, kernel {ms:.4f} ms, torch.take "
-                         f"{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, {sectors} distinct "
-                         f"32-B sectors ({sectors / n:.4f} per index), bound "
-                         f"{b_ms:.4f} ms ({b_by})")
-            if label == "real":
-                rec = self.kernels["gather_values"]
-                rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by)
-            del got, want, idx64
-        del streams
+        for n in GATHER_SIZES:
+            idx = torch.randint(0, net.table_size, (n,), generator=gen, device=self.dev,
+                                dtype=torch.int32)
+            r = self.measure_gather(table, idx, reps=100 if n <= 1 << 20 else 20 if n <= 1 << 23
+                                    else 5, cold=False, plain=n == GATHER_UNIFORM_N)
+            parts.append("uniform " + self.gather_text(r))
+            del idx
+        parts.append(self.gather_offsets(table, gen))
+        real = net.indices_batch(leaf_afterstates(self.leaf_roots)).reshape(-1)
+        check(real.numel() == LEAF_BOARDS * 512 * net.n_features,
+              f"real stream of {real.numel()} indices")
+        r = self.measure_gather(table, real)
+        parts.append("real (depth-2 leaves) " + self.gather_text(r))
+        self.record_gather(r)
+        del real
         return (f"table {AGENT_ARCH} n_vals {AGENT_N_VALS} thresholds {AGENT_THRESHOLDS}: "
                 f"{net.table_size} f32; " + "; ".join(parts))
 
@@ -1031,34 +1205,25 @@ class Smoke:
     # 15b
     def td_gather(self) -> str:
         """The lookup kernel on the TD step's own stream: the 4 afterstates
-        of each of the 8192 boards of the learner's state."""
+        of each of the 8192 boards of the learner's state, warm and cold."""
+        idx, text = self.td_stream(self.td_trainer._net, self.td_state)
+        r = self.measure_gather(self.td_state["table"], idx)
+        self.record_gather(r)
+        return (f"{text}: {self.gather_text(r)}; "
+                f"{self.path_launches['td']['gather_values']} launches per chunk")
+
+    @staticmethod
+    def td_stream(net, state: dict) -> tuple[torch.Tensor, str]:
+        """The indices a TD step looks up for ``state``'s boards: each
+        board's four afterstates."""
         from gym2048_tpu_torch.core import rules
 
-        tg, net, table = self.tg, self.td_trainer._net, self.td_state["table"]
-        boards = self.td_state["boards"]
+        boards = state["boards"]
         moved = rules.move_all(boards)[0].reshape(-1, 4, 4)
         idx = net.indices_batch(moved).reshape(-1)
-        n = idx.numel()
-        check(n == 4 * boards.shape[0] * net.n_features, f"TD stream of {n} indices")
-        got = tg.gather_values(table, idx)
-        want = tg.gather_values_reference(table, idx)
-        err = max_abs_err([got], [want])
-        check(err == 0.0 and torch.equal(got.view(torch.int32), want.view(torch.int32)),
-              f"gather_values differs from plain on the TD stream by {err}")
-        idx64 = idx.long()
-        rec = self.kernels["gather_values"]
-        ms = graph_ms(lambda: tg.gather_values(table, idx), 20)
-        lib_ms = graph_ms(lambda: torch.take(table, idx64), 20)
-        plain_ms = event_ms(lambda: tg.gather_values_reference(table, idx), 5)
-        sectors = torch.unique(idx // 8).numel()
-        b_ms, b_by = bound(self.ops("gather_values", n // 4), 8 * n + 32 * sectors)
-        rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        return (f"N={n} (4 afterstates x {boards.shape[0]} boards x {net.n_features}): "
-                f"bit-exact, kernel {ms:.4f} ms, torch.take {lib_ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, {sectors} distinct 32-B sectors ({sectors / n:.4f} per "
-                f"index), bound {b_ms:.4f} ms ({b_by}); "
-                f"{self.path_launches['td']['gather_values']} launches per chunk")
+        check(idx.numel() == 4 * boards.shape[0] * net.n_features,
+              f"TD stream of {idx.numel()} indices")
+        return idx, f"4 afterstates x {boards.shape[0]} boards x {net.n_features}"
 
     # 15c
     def td_replay(self) -> str:
@@ -1211,9 +1376,14 @@ class Smoke:
               f"ep_score_mean {last.ep_score_mean} at {last.steps} steps outside [{lo}, {hi}]")
         curve = ", ".join(f"{e.steps}: {e.ep_score_mean:.1f} ({e.episodes:.0f} episodes)"
                           for e in hist)
+        # the lookup on the trained learner's own stream, into its own table
+        idx, text = self.td_stream(tr._net, state)
+        self.late_stream = (state["table"], idx)
+        late = self.gather_text(self.measure_gather(state["table"], idx))
         return (f"{cfg.arch} TC unstaged, {cfg.n_envs} envs, {cfg.total_steps} steps in "
                 f"{secs:.2f} s ({cfg.total_steps / secs:.1f} steps/s): ep_score_mean {curve}; "
-                f"the last in [{lo:.0f}, {hi:.0f}], highest tile {last.highest_tile_max}")
+                f"the last in [{lo:.0f}, {hi:.0f}], highest tile {last.highest_tile_max}; "
+                f"late TD stream ({text}, table of {tr._net.table_size}): {late}")
 
     # 16
     def launch_counters(self) -> str:
@@ -1265,5 +1435,113 @@ def main() -> int:
     return 0
 
 
+def gather_ab(sources: list[str], rounds: int = GATHER_AB_ROUNDS) -> int:
+    """Compare versions of ``table_gather.cu`` in one process, on one card.
+
+    Each source is built into a library of its own (one ``nvcc`` each,
+    started together) and held bit for bit against the plain version on
+    the lookup streams of the paths: the agent's depth-2 leaves, the TD
+    step's afterstates after the first flagship chunk and after the 50
+    chunks of phase 15f, and a uniform stream of 1,024 indices (the
+    launch). Then ``rounds`` rounds time every source on every stream warm
+    (``graph_ms``), cold (``cold_graph_ms``) and alone (``alone_ms``), the
+    sources in turn, forward in even rounds and backward in odd ones. The
+    first source is the baseline: each other one is reported with the
+    ratio of its median to the baseline's and the rounds in which it was
+    faster. Builds the streams through phases 1, 2, 8a, 11, 15a and 15f."""
+    from pathlib import Path
+
+    from gym2048_tpu_torch import _build, _sass
+
+    smoke = Smoke()
+    for num, name, fn in (("1", "device", smoke.device), ("2", "build", smoke.build),
+                          ("8a", "main path", smoke.main_path),
+                          ("11", "gather_values", smoke.gather_values),
+                          ("15a", "td path", smoke.td_path),
+                          ("15f", "td learning", smoke.td_learning)):
+        smoke.run(num, name, fn)
+    out_dir = _build.BUILD / "gather_ab"
+    paths = _build.build_all(libraries={
+        str(i): (Path(src).resolve(), out_dir / f"libgather_ab{i}.so")
+        for i, src in enumerate(sources)})
+    libs = [_build.load(path, "table_gather") for path in paths.values()]
+    for src, path in zip(sources, paths.values()):
+        listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(path)],
+                                 capture_output=True, text=True, check=True).stdout
+        usage = resource_usage(listing)
+        print(f"source {src}: " + ", ".join(
+            f"{k} {u['REG']} registers, {u['STACK']} B stack" for k, u in sorted(usage.items())),
+            flush=True)
+    gen = torch.Generator(device=smoke.dev).manual_seed(SEED)
+    uniform = torch.randint(0, smoke.net.table_size, (1 << 10,), generator=gen,
+                            device=smoke.dev, dtype=torch.int32)
+    streams = {
+        "uniform 1024": (smoke.table, uniform),
+        "agent": (smoke.table,
+                  smoke.net.indices_batch(leaf_afterstates(smoke.leaf_roots)).reshape(-1)),
+        "TD": (smoke.td_state["table"], smoke.td_stream(smoke.td_trainer._net, smoke.td_state)[0]),
+        "late TD": smoke.late_stream,
+    }
+    outs = {name: torch.empty(idx.shape, dtype=torch.float32, device=smoke.dev)
+            for name, (_, idx) in streams.items()}
+
+    def call(lib, name):
+        table, idx = streams[name]
+        err = lib.gym_gather_values(table.data_ptr(), idx.data_ptr(), outs[name].data_ptr(),
+                                    idx.numel(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"launch failed with error {err}")
+
+    for i, lib in enumerate(libs):
+        for name, (table, idx) in streams.items():
+            outs[name].fill_(float("nan"))
+            call(lib, name)
+            want = torch.take(table, idx.long())
+            check(torch.equal(outs[name].view(torch.int32), want.view(torch.int32)),
+                  f"source {sources[i]} differs from plain on the {name} stream")
+    print(f"every source bit-exact on {', '.join(streams)}", flush=True)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=smoke.dev)
+    modes = {"warm": lambda fn: graph_ms(fn, 20),
+             "cold": lambda fn: cold_graph_ms(fn, lambda: flush.fill_(1.0), 20),
+             "alone": alone_ms}
+    times = {(i, name, mode): [] for i in range(len(libs)) for name in streams for mode in modes}
+    for r in range(rounds):
+        order = range(len(libs)) if r % 2 == 0 else reversed(range(len(libs)))
+        for i in order:
+            for name in streams:
+                for mode, measure in modes.items():
+                    times[i, name, mode].append(
+                        1e3 * measure(lambda: call(libs[i], name)))
+    print(f"us per call, {rounds} rounds; per source: median [each round]; against "
+          f"source 0: ratio of medians, rounds faster")
+    for name in streams:
+        for mode in modes:
+            base = times[0, name, mode]
+            parts = []
+            for i in range(len(libs)):
+                t = times[i, name, mode]
+                text = f"{i}: {np.median(t):.3f} [{' '.join(f'{x:.3f}' for x in t)}]"
+                if i:
+                    wins = sum(a < b for a, b in zip(t, base))
+                    text += f" {np.median(t) / np.median(base):.4f} {wins}/{rounds}"
+                parts.append(text)
+            print(f"{name} {mode}: " + "; ".join(parts), flush=True)
+    print(smoke.smi)
+    return 0
+
+
+def parse_args(argv: list[str]) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--gather-ab", nargs="+", metavar="SOURCE",
+                        help="instead of the phases, compare these versions of "
+                             "table_gather.cu on the lookup streams (the first is the "
+                             "baseline)")
+    parser.add_argument("--rounds", type=int, default=GATHER_AB_ROUNDS,
+                        help="rounds of --gather-ab")
+    return parser.parse_args(argv)
+
+
 if __name__ == "__main__":
+    args = parse_args(sys.argv[1:])
+    if args.gather_ab and torch.cuda.is_available():
+        sys.exit(gather_ab(args.gather_ab, args.rounds))
     sys.exit(main())

@@ -109,11 +109,14 @@ def build(source: Path = SOURCE, library: Path = LIBRARY,
     return library
 
 
-def build_all(nvcc: str | None = None) -> dict[str, Path]:
-    """Build every library of ``LIBRARIES`` that is out of date, one
-    ``nvcc`` per source, all started together. Returns name -> path."""
+def build_all(nvcc: str | None = None,
+              libraries: dict[str, tuple[Path, Path]] | None = None) -> dict[str, Path]:
+    """Build every library of ``libraries`` (name -> (source, library),
+    by default ``LIBRARIES``) that is out of date, one ``nvcc`` per source,
+    all started together. Returns name -> path."""
     nvcc = nvcc or find_nvcc()
-    jobs = [_start(src, lib, nvcc) for src, lib in LIBRARIES.values()]
+    libraries = LIBRARIES if libraries is None else libraries
+    jobs = [_start(src, lib, nvcc) for src, lib in libraries.values()]
     errors = []
     for job in jobs:
         if job is not None:
@@ -123,16 +126,22 @@ def build_all(nvcc: str | None = None) -> dict[str, Path]:
                 errors.append(e)
     if errors:
         raise errors[0]
-    return {name: lib for name, (_, lib) in LIBRARIES.items()}
+    return {name: lib for name, (_, lib) in libraries.items()}
+
+
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """The built library at ``path`` with the C functions of the library
+    ``name`` (a key of ``LIBRARIES``) declared."""
+    lib = ctypes.CDLL(str(path))
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
 
 
 @functools.cache
 def library(name: str = "fused_step") -> ctypes.CDLL:
     """The built library ``name`` (a key of ``LIBRARIES``) with every C
     function's types declared."""
-    lib = ctypes.CDLL(str(build(*LIBRARIES[name])))
-    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+    return load(build(*LIBRARIES[name]), name)

@@ -8,7 +8,11 @@ by :mod:`gym2048_tpu_torch._build` into a library of its own.
 The TPU kernel's ``chunk`` and ``n_sem`` (a ring of row DMAs and a
 one-hot lane select, because the TPU's scalar core cannot read single
 words of HBM) have no meaning on the GPU and are not carried, and neither
-are its shape rules: here N and the table size S may be anything.
+are its shape rules: here N and the table size S may be anything. The
+kernel takes one 16-byte group of four indices per thread, and a scalar
+head and tail in the same launch align the stream: only index and output
+pointers at different offsets modulo 16 bytes take its
+one-index-per-thread kernel.
 
 :func:`gather_values` checks its arguments, runs the plain version
 (:func:`gather_values_reference`, ``torch.take``) when the tensors lie on
