@@ -29,7 +29,21 @@ counts:
   must leave every leaf of the state identical; the learner's rate is
   measured in two configs, profiled, and checked to learn: 50 chunks of the
   unstaged 4x6 TC config of ``docs/curves/td_4x6_tc_run.jsonl`` must reach
-  an episode score inside the band that the JAX runs bracket.
+  an episode score inside the band that the JAX runs bracket;
+* the small 17 x 4-cell TD learner (the learner's default ``--arch
+  small``): the config of ``docs/curves/ntuple_table_tc1b.pkl`` at full
+  width (8192 envs, TC, the 1,419,857-entry table), one 64-step chunk, one
+  lookup kernel launch per step. The lookup is timed on its stream, the
+  first path stream whose table fits in the L2; 16-step chunks with the
+  exact and the split lookup are replayed with the plain lookup in
+  deterministic mode and must leave every leaf identical; three configs
+  are timed and one profiled; the config of ``docs/curves/td_mxu_run.jsonl``
+  must learn into the band that the JAX runs bracket, and its table is
+  played greedily and by the expectimax CLI's small-table policy at depth
+  2, whose first 128 moves are replayed with the plain lookup.
+
+Last, the ``ops`` transforms (observation encoders, augmentation, returns)
+on the card must equal their CPU results.
 
 Before the paths, the single-step kernels, and the rollout for 32 steps,
 are held bit for bit against their plain versions on 65,536 boards of
@@ -122,6 +136,7 @@ PATHS = {
     "step replay": ("fused_step_uniform", "fused_move", "random_uniform_rows"),
     "agent": ("gather_values",),
     "td": ("gather_values",),
+    "td small": ("gather_values",),
 }
 
 # The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
@@ -171,6 +186,27 @@ TD_LEARN = dict(n_envs=8192, chunk_steps=64, arch="4x6", tc=True, alpha=1.0,
 TD_LEARN_BAND = (24_800.0, 65_000.0)
 TD_REPLAY_STEPS = 16       # the deterministic kernel-vs-plain chunk
 TD_TIMED_CHUNKS = 3
+
+# The small net (the learner's default arch): docs/curves/ntuple_table_tc1b.pkl's
+# config (total_steps excepted), on the default lookup ("auto", the exact one).
+TD_SMALL = dict(n_envs=8192, chunk_steps=64, alpha=1.0, alpha_final=1.0, init_value=80_000.0,
+                seed=0, update_impl="mxu", value_impl="auto", tc=True)
+# bench.py::bench_td: 8192 envs x 64 steps, the split lookup, alpha 0.1, no TC
+TD_BENCH_SMALL = dict(n_envs=8192, chunk_steps=64, update_impl="mxu", value_impl="mxu",
+                      alpha=0.1, alpha_final=0.1)
+# docs/curves/td_mxu_run.jsonl: 8192 envs x 64, alpha 0.25 -> 0.05 over 150M
+# steps, init 80,000, no TC, the split lookup; its second line is at
+# 41,943,040 steps = 80 chunks
+TD_SMALL_LEARN = dict(n_envs=8192, chunk_steps=64, alpha=0.25, alpha_final=0.05,
+                      init_value=80_000.0, seed=7, total_steps=150_000_000,
+                      update_impl="mxu", value_impl="mxu")
+TD_SMALL_LEARN_CHUNKS = 80
+# The JAX runs logged 37,584.1 (td_mxu_run.jsonl) and 39,778.5 (td_run.jsonl)
+# at that step; random play scores ~1,000.
+TD_SMALL_LEARN_BAND = (24_000.0, 56_000.0)
+GREEDY_GAMES = 256
+GREEDY_MIN = 10_000.0      # JAX's greedy play at 150M steps: 46,949 (td_eval.json)
+SMALL_AGENT_GAMES, SMALL_AGENT_MOVE_CAP = 64, 512
 
 PHILOX_KAT = [  # Random123 known answers: counter, key, result
     ((0, 0, 0, 0), (0, 0),
@@ -480,27 +516,28 @@ def short_kernel_name(key: str) -> str:
 
 @contextlib.contextmanager
 def plain_lookup():
-    """Within this block the network's lookup is the plain version
-    (``torch.take``) instead of the kernel."""
-    from gym2048_tpu_torch.models import ntuple_big, table_gather
+    """Within this block the networks' lookups (the big nets' and the small
+    net's split lookup) are the plain version (``torch.take``) instead of
+    the kernel."""
+    from gym2048_tpu_torch.models import ntuple, ntuple_big, table_gather
 
-    saved = ntuple_big.gather_values
-    ntuple_big.gather_values = table_gather.gather_values_reference
+    saved = ntuple_big.gather_values, ntuple.gather_values
+    ntuple_big.gather_values = ntuple.gather_values = table_gather.gather_values_reference
     try:
         yield
     finally:
-        ntuple_big.gather_values = saved
+        ntuple_big.gather_values, ntuple.gather_values = saved
 
 
 def timed_chunks(trainer, state, chunks: int):
-    """Run ``chunks`` chunks after the given state, each host-timed to a
-    device sync; returns the state, the seconds of each, and the last
-    chunk's metrics."""
+    """Run ``chunks`` chunks after the given state at the config's
+    ``alpha``, each host-timed to a device sync; returns the state, the
+    seconds of each, and the last chunk's metrics."""
     secs = []
     for _ in range(chunks):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = trainer.train_chunk(state, 1.0)
+        state, metrics = trainer.train_chunk(state, trainer.cfg.alpha)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return state, secs, metrics
@@ -1241,17 +1278,7 @@ class Smoke:
         tr = td.TDTrainer(cfg, device=self.dev)
 
         def run(lookup: str, deterministic: bool):
-            launched = self.tg.LAUNCHES["gather_values"]
-            torch.use_deterministic_algorithms(deterministic)
-            try:
-                with plain_lookup() if lookup == "plain" else contextlib.nullcontext():
-                    state, secs, _ = timed_chunks(tr, clone_state(self.td_state), 1)
-            finally:
-                torch.use_deterministic_algorithms(False)
-            kernel_launches = self.tg.LAUNCHES["gather_values"] - launched
-            check(kernel_launches == (TD_REPLAY_STEPS if lookup == "kernel" else 0),
-                  f"{kernel_launches} kernel launches in the {lookup} run")
-            return state, secs[0]
+            return self.replay_chunk(tr, self.td_state, lookup, deterministic, 1)
 
         det1, det1_s = run("kernel", True)
         plain, plain_s = run("plain", True)
@@ -1272,6 +1299,54 @@ class Smoke:
                 f"{default2_s:.3f}; leaves that differ between the two default-mode chunks: "
                 f"{state_diffs(default1, default2)}, between default and deterministic: "
                 f"{state_diffs(default1, det1)}")
+
+    def replay_chunk(self, tr, state: dict, lookup: str, deterministic: bool,
+                     lookups_per_step: int):
+        """One chunk of ``tr`` from a copy of ``state`` with the lookup kernel
+        or the plain lookup, in deterministic mode or not; checks the
+        kernel's launches and returns the state and the chunk's seconds."""
+        launched = self.tg.LAUNCHES["gather_values"]
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            with plain_lookup() if lookup == "plain" else contextlib.nullcontext():
+                state, secs, _ = timed_chunks(tr, clone_state(state), 1)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        kernel_launches = self.tg.LAUNCHES["gather_values"] - launched
+        want = tr.cfg.chunk_steps * lookups_per_step if lookup == "kernel" else 0
+        check(kernel_launches == want, f"{kernel_launches} kernel launches in the {lookup} "
+              f"run, not {want}")
+        return state, secs[0]
+
+    def profile_chunk(self, tr, state: dict) -> tuple[str, dict[str, float]]:
+        """``torch.profiler`` over one chunk of ``tr`` from a copy of
+        ``state`` (device events only): its text (the device's busy share,
+        kernels per step, top kernels) and the device us by kernel."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        steps = tr.cfg.chunk_steps
+        state = clone_state(state)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train_chunk(state, tr.cfg.alpha)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        busy = sum(device_us.values())
+        if not busy:
+            return "torch.profiler recorded no device time: busy share not measured", {}
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+        return (f"wall {wall_us / steps / 1e3:.3f} ms per step under the profiler, device "
+                f"busy {busy / steps / 1e3:.3f} ms per step ({busy / wall_us:.4f} of the "
+                f"wall time), {launches / steps:.1f} device kernels per step, "
+                f"{len(device_us)} distinct; top: "
+                + "; ".join(f"{short_kernel_name(k)} {us / busy:.3f}" for k, us in top),
+                device_us)
 
     def td_rate(self, config: dict, label: str) -> str:
         from gym2048_tpu_torch.train import td
@@ -1307,32 +1382,12 @@ class Smoke:
         """``torch.profiler`` over one flagship chunk (device events only):
         the device's busy share and top kernels; and the device time of the
         chunk's table-sized pieces, each timed alone at full width."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         from gym2048_tpu_torch.models.ntuple import _tc_combine
 
         tr, state = self.td_trainer, clone_state(self.td_state)
         steps = tr.cfg.chunk_steps
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.train_chunk(state, 1.0)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        profiled, device_us = self.profile_chunk(tr, state)
         busy = sum(device_us.values())
-        launches = sum(e.count for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
-        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
-        profiled = (f"wall {wall_us / steps / 1e3:.3f} ms per step under the profiler, device "
-                    f"busy {busy / steps / 1e3:.3f} ms per step ({busy / wall_us:.4f} of the "
-                    f"wall time), {launches / steps:.1f} device kernels per step, "
-                    f"{len(device_us)} distinct; top: "
-                    + "; ".join(f"{short_kernel_name(k)} {us / busy:.3f}" for k, us in top)
-                    if busy else "torch.profiler recorded no device time: busy share not "
-                    "measured")
         # the pieces, timed alone on the state's arrays
         net, table = tr._net, state["table"]
         pend = tuple(torch.zeros_like(table) for _ in range(3))
@@ -1385,6 +1440,225 @@ class Smoke:
                 f"the last in [{lo:.0f}, {hi:.0f}], highest tile {last.highest_tile_max}; "
                 f"late TD stream ({text}, table of {tr._net.table_size}): {late}")
 
+    # 17a
+    def td_small_path(self) -> str:
+        """The small net's TD learner at full width, one chunk, driven as path
+        "td small": one lookup kernel launch per step."""
+        from gym2048_tpu_torch.train import td
+
+        cfg = td.TDConfig(**TD_SMALL)
+        self.small_trainer = tr = td.TDTrainer(cfg, device=self.dev)
+        check(tr._net is None and tr._small.value_impl == "gather", "not the small net's lookup")
+        state = tr.init_state()
+        t0 = time.perf_counter()
+        state, m = self.drive("td small", lambda: tr.train_chunk(state, cfg.alpha))
+        secs = time.perf_counter() - t0
+        launches = self.path_launches["td small"]["gather_values"]
+        check(launches == cfg.chunk_steps, f"{launches} lookups in a {cfg.chunk_steps}-step chunk")
+        check(all(torch.isfinite(state[k]).all().item() for k in ("table", "tc_e", "tc_a")),
+              "non-finite table or accumulators")
+        moved = (state["table"] != cfg.init_value / 17).sum().item()
+        check(moved > 0, "the chunk did not move the table")
+        self.small_state = state
+        return (f"small 17x4 net, {state['table'].numel()} f32 x 3 (table, tc_e, tc_a), "
+                f"{cfg.n_envs} envs, TC, value_impl {cfg.value_impl}: first chunk of "
+                f"{cfg.chunk_steps} steps in {secs:.3f} s (allocation included), "
+                f"{m['episodes'].item():.0f} episodes, highest exponent "
+                f"{m['highest_exp'].item()}, {moved} entries moved; launches "
+                f"{self.path_launches['td small']}")
+
+    # 17b
+    def td_small_gather(self) -> str:
+        """The lookup kernel on the small TD step's stream: the 4 afterstates
+        of each of the 8192 boards, 136 lookups each, into the 5.7 MB table
+        (it fits in the L2), warm and cold."""
+        from gym2048_tpu_torch.models import ntuple
+
+        idx, text = self.td_stream(ntuple.network(), self.small_state)
+        r = self.measure_gather(self.small_state["table"], idx)
+        return (f"{text}: {self.gather_text(r)}; "
+                f"{self.path_launches['td small']['gather_values']} launches per chunk")
+
+    # 17c
+    def td_small_replay(self) -> str:
+        """16-step small chunks from the learner's state with the lookup kernel
+        and with the plain lookup, in deterministic mode, with the exact
+        lookup and with the split one (two lookups a step): every leaf of
+        the state equal bit for bit."""
+        import dataclasses
+
+        from gym2048_tpu_torch.train import td
+
+        parts = []
+        for impl, per_step in (("auto", 1), ("mxu", 2)):
+            cfg = dataclasses.replace(self.small_trainer.cfg, chunk_steps=TD_REPLAY_STEPS,
+                                      value_impl=impl)
+            tr = td.TDTrainer(cfg, device=self.dev)
+            kernel, kernel_s = self.replay_chunk(tr, self.small_state, "kernel", True, per_step)
+            plain, plain_s = self.replay_chunk(tr, self.small_state, "plain", True, per_step)
+            bad = state_diffs(kernel, plain)
+            check(not bad, f"value_impl {impl}: the plain-lookup chunk differs in {bad}")
+            moved = (kernel["table"] != self.small_state["table"]).sum().item()
+            check(moved > 0, "the replayed chunk did not move the table")
+            parts.append(f"value_impl {impl} ({per_step * TD_REPLAY_STEPS} kernel launches): "
+                         f"identical in all {len(kernel)} leaves, {moved} entries moved, "
+                         f"{kernel_s:.3f} s kernel, {plain_s:.3f} s plain")
+        return f"{TD_REPLAY_STEPS} steps x {TD_SMALL['n_envs']} envs, deterministic: " + "; ".join(parts)
+
+    # 17d
+    def td_small_throughput(self) -> str:
+        """Steps/s of the small learner in three configs, and
+        ``torch.profiler`` over one chunk of the first."""
+        from gym2048_tpu_torch.train import td
+
+        rates = "; ".join(self.td_rate(c, label) for c, label in (
+            (TD_SMALL, "ntuple_table_tc1b config (TC, exact lookup)"),
+            (TD_BENCH_SMALL, "bench_td (split lookup, alpha 0.1)"),
+            ({}, "CLI defaults (TDConfig(): 4096 envs x 256)")))
+        profiled, device_us = self.profile_chunk(self.small_trainer, self.small_state)
+        busy = sum(device_us.values())
+        lookup = sum(us for k, us in device_us.items()
+                     if "gather4_kernel" in k or "gather1_kernel" in k)
+        share = f"; the lookup kernel {lookup / busy:.4f} of the device time" if busy else ""
+        return f"{rates}; on {self.smi}. One TC chunk profiled: {profiled}{share}"
+
+    # 17e
+    def td_small_learning(self) -> str:
+        """80 chunks of docs/curves/td_mxu_run.jsonl's config from the
+        optimistic table: the last chunk's episode score must lie in the
+        band of the JAX runs."""
+        from gym2048_tpu_torch.train import td
+
+        cfg = td.TDConfig(**TD_SMALL_LEARN)
+        tr = td.TDTrainer(cfg, device=self.dev)
+        t0 = time.perf_counter()
+        state, hist = tr.learn(log_every=20, log_fn=None, max_chunks=TD_SMALL_LEARN_CHUNKS)
+        secs = time.perf_counter() - t0
+        last = hist[-1]
+        steps = TD_SMALL_LEARN_CHUNKS * cfg.n_envs * cfg.chunk_steps
+        check(last.steps == steps, f"trained {last.steps} steps")
+        check(torch.isfinite(state["table"]).all().item(), "non-finite table")
+        lo, hi = TD_SMALL_LEARN_BAND
+        check(lo <= last.ep_score_mean <= hi,
+              f"ep_score_mean {last.ep_score_mean} at {last.steps} steps outside [{lo}, {hi}]")
+        self.small_table = state["table"]
+        curve = ", ".join(f"{e.steps}: {e.ep_score_mean:.1f} ({e.episodes:.0f} episodes, "
+                          f"alpha {e.alpha:.4f})" for e in hist)
+        return (f"small net, value_impl {cfg.value_impl}, {cfg.n_envs} envs, {steps} steps of "
+                f"the {cfg.total_steps}-step schedule in {secs:.2f} s ({steps / secs:.1f} "
+                f"steps/s): ep_score_mean {curve}; the last in [{lo:.0f}, {hi:.0f}] (JAX "
+                f"37,584.1 and 39,778.5 there), highest tile {last.highest_tile_max}")
+
+    # 17f
+    def td_small_play(self) -> str:
+        """The table phase 17e trained: greedy play (``play_greedy``, the
+        exact lookup), and the expectimax CLI's small-table policy at depth
+        2, its every live action legal and its first 128 moves as with the
+        plain lookup."""
+        from gym2048_tpu_torch.agents import expectimax as ex
+        from gym2048_tpu_torch.models import ntuple
+        from gym2048_tpu_torch.train import td
+
+        table = self.small_table
+        t0 = time.perf_counter()
+        res = td.play_greedy(table, GREEDY_GAMES, torch.Generator(device=self.dev).manual_seed(SEED))
+        greedy_s = time.perf_counter() - t0
+        check(res["Average score"] >= GREEDY_MIN,
+              f"greedy average {res['Average score']} below {GREEDY_MIN}")
+        moves = sum(e["moves"] for e in res["Episodes"])
+
+        net = ntuple.SmallNet("auto")  # the CLI's default: exact lookups
+        params = net.params(table)
+        pol = ex.make_afterstate_policy(net.value_batch, depth=2, parametrised=True)
+
+        def play(record, cap):
+            return ex.play_policy(record, SMALL_AGENT_GAMES,
+                                  torch.Generator(device=self.dev).manual_seed(SEED), cap,
+                                  AGENT_CHUNK, params=params, needs_active=True,
+                                  device=self.dev)
+
+        rec = MoveRecord(lambda p, b, active: pol(p, b))
+        t0 = time.perf_counter()
+        ares = play(rec, SMALL_AGENT_MOVE_CAP)
+        agent_s = time.perf_counter() - t0
+        n_moves = len(rec.actions)
+        illegal, _, lengths = rec.replay(n_moves)
+        check(illegal == 0, f"{illegal} illegal actions on live boards")
+        check(lengths == [e["moves"] for e in ares["Episodes"]], "play_policy and the record disagree")
+        plain = MoveRecord(lambda p, b, active: pol(p, b))
+        launched = self.tg.LAUNCHES["gather_values"]
+        with plain_lookup():
+            play(plain, REPLAY_MOVES)
+        check(self.tg.LAUNCHES["gather_values"] == launched, "the plain replay launched the kernel")
+        check(n_moves >= REPLAY_MOVES and len(plain.actions) == REPLAY_MOVES, "replay length")
+        check(torch.equal(torch.stack(rec.actions[:REPLAY_MOVES]), torch.stack(plain.actions)),
+              f"actions differ from the plain lookup's within {REPLAY_MOVES} moves")
+        check(rec.replay(REPLAY_MOVES) == plain.replay(REPLAY_MOVES),
+              "scores or lengths differ from the plain replay")
+        searched = sum(e["moves"] for e in ares["Episodes"])
+        return (f"greedy, {GREEDY_GAMES} games: average {res['Average score']:.1f} (JAX greedy "
+                f"at 150M steps: 46,949.2, td_eval.json), max {res['Max score']:.0f}, highest "
+                f"tile {res['Highest tile']}, {moves} moves in {greedy_s:.2f} s; expectimax "
+                f"depth 2, {SMALL_AGENT_GAMES} games, cap {SMALL_AGENT_MOVE_CAP}: average "
+                f"{ares['Average score']:.1f}, {searched / agent_s:.1f} searched moves/s, "
+                f"every live action legal, first {REPLAY_MOVES} moves identical to the plain "
+                f"lookup's; on {self.smi}")
+
+    # 18
+    def ops_on_card(self) -> str:
+        """Every ``ops`` function on CUDA tensors against its CPU result:
+        exact for the encoders and the augmentation, within 1e-6 of the
+        output's largest magnitude for the returns."""
+        from gym2048_tpu_torch.ops import augment, obs, returns
+
+        rng = np.random.default_rng(SEED)
+        b = torch.as_tensor(random_boards(rng, 4096, 17, 0.3))
+        nb = torch.as_tensor(random_boards(rng, 4096, 17, 0.3))
+        a = torch.as_tensor(rng.integers(0, 4, 4096))
+        r = torch.as_tensor(rng.integers(0, 3000, (256, 64)).astype(np.float32))
+        v = torch.as_tensor(rng.normal(size=(256, 64)).astype(np.float32) * 100)
+        d = torch.as_tensor(rng.random((256, 64)) < 0.05)
+        exact = {
+            "env_stack": lambda x: obs.env_stack(x[0]),
+            "dataset_stack": lambda x: obs.dataset_stack(x[0]),
+            "unstack_env": lambda x: obs.unstack_env(obs.env_stack(x[0])),
+            "dataset_to_env": lambda x: obs.dataset_to_env(obs.dataset_stack(x[0])),
+            "hflip_boards": lambda x: augment.hflip_boards(x[0]),
+            "hflip_actions": lambda x: augment.hflip_actions(x[2]),
+            "rotate_boards": lambda x: augment.rotate_boards(x[0], 3),
+            "rotate_actions": lambda x: augment.rotate_actions(x[2], 3),
+            "augment8": lambda x: augment.augment8(x[0], x[2], x[1]),
+        }
+        close = {
+            "log2_rewards": lambda x: (returns.log2_rewards(x[3]),),
+            "discounted_returns": lambda x: (returns.discounted_returns(x[3][:, 0], x[5][:, 0]),),
+            "gae": lambda x: returns.gae(x[3], x[4], x[5], x[4][0]),
+            "normalize": lambda x: (returns.normalize(x[3]),),
+        }
+        cpu = (b, nb, a, r, v, d)
+        gpu = tuple(x.to(self.dev) for x in cpu)
+
+        def outs(fn, x):
+            out = fn(x)
+            return out if isinstance(out, tuple) else (out,)
+
+        for name, fn in exact.items():
+            for g, c in zip(outs(fn, gpu), outs(fn, cpu)):
+                check(g.device.type == "cuda" and torch.equal(g.cpu(), c),
+                      f"ops {name} on the card differs from the CPU")
+        worst = 0.0
+        for name, fn in close.items():
+            for g, c in zip(outs(fn, gpu), outs(fn, cpu)):
+                check(g.device.type == "cuda", f"ops {name} left the card")
+                # relative to the output's largest magnitude: normalize's
+                # moments are sums in another order, and its values near 0
+                rel = ((g.cpu().double() - c.double()).abs().max()
+                       / c.double().abs().max().clamp(min=1e-30)).item()
+                worst = max(worst, rel)
+                check(rel <= 1e-6, f"ops {name}: relative error {rel}")
+        return (f"{', '.join(exact)}: equal to the CPU; {', '.join(close)}: within "
+                f"{worst:.3g} of the largest magnitude (limit 1e-6)")
+
     # 16
     def launch_counters(self) -> str:
         self.zero_launches()
@@ -1423,6 +1697,13 @@ def main() -> int:
     smoke.run("15d", "td throughput", smoke.td_throughput)
     smoke.run("15e", "td profile", smoke.td_profile)
     smoke.run("15f", "td learning", smoke.td_learning)
+    smoke.run("17a", "td small path", smoke.td_small_path)
+    smoke.run("17b", "td small gather", smoke.td_small_gather)
+    smoke.run("17c", "td small kernel vs plain", smoke.td_small_replay)
+    smoke.run("17d", "td small throughput", smoke.td_small_throughput)
+    smoke.run("17e", "td small learning", smoke.td_small_learning)
+    smoke.run("17f", "td small play", smoke.td_small_play)
+    smoke.run("18", "ops", smoke.ops_on_card)
     smoke.run("16", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -13,6 +13,10 @@ Layout (mirrors ``gym2048_tpu``):
 * ``core/fused_step.py`` — the fused move / step / rollout kernels (the
   counterpart of ``core/pallas_step.py``) and their plain versions;
 * ``csrc/fused_step.cu`` — the CUDA source of those kernels;
+* ``models/`` — the n-tuple networks (the small 17 x 4-cell net and the big
+  layouts) and their table lookup kernel (``csrc/table_gather.cu``);
+* ``agents/expectimax.py``, ``train/td.py`` — the agents and the TD learner;
+* ``ops/`` — observation encoders, symmetry augmentation, reward math;
 * ``interop.py`` — state carried over from the JAX package as numpy.
 """
 

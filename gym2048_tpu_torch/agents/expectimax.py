@@ -332,6 +332,11 @@ def main(argv: list[str] | None = None) -> None:
                    help="n-tuple table .pkl (save_model format with the "
                    "network's config in its meta): search over AFTERSTATE "
                    "values instead of the heuristic leaf")
+    p.add_argument("--value-impl", choices=("auto", "gather", "mxu", "mxu_bf16"),
+                   default="auto",
+                   help="small-net table lookups: gather (auto; exact), mxu (the bf16 "
+                   "split halves, ~2**-16) or mxu_bf16 (the hi half alone); big nets "
+                   "have one lookup")
     p.add_argument("--beam", action="store_true",
                    help="depth-3 greedy forward pruning at the pre-leaf max level")
     p.add_argument("--adaptive", type=int, default=0, metavar="K",
@@ -350,14 +355,17 @@ def main(argv: list[str] | None = None) -> None:
 
     if args.table:
         from gym2048_tpu_torch import interop
+        from gym2048_tpu_torch.models.ntuple import SmallNet
         from gym2048_tpu_torch.utils.checkpoint import load_model
 
         variables, meta = load_model(args.table)
         try:
-            net = interop.network_from_config(meta.get("config") or {})
+            net = interop.network_from_config(meta.get("config") or {}, args.value_impl)
         except ValueError as e:
             p.error(str(e))
         table = interop.table_from_numpy(variables["table"], device)
+        if isinstance(net, SmallNet):  # the split halves, once, in the "mxu" modes
+            table = net.params(table)
         if args.adaptive:
             pol = make_adaptive_policy(net.value_batch, args.adaptive,
                                        args.deep_empty_max)

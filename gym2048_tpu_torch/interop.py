@@ -15,6 +15,7 @@ import torch
 
 from gym2048_tpu_torch.core.fused_step import to_cell_major
 from gym2048_tpu_torch.env.batched import EnvState
+from gym2048_tpu_torch.models.ntuple import SmallNet
 from gym2048_tpu_torch.models.ntuple_big import NTupleNetwork, make_network
 
 
@@ -43,7 +44,8 @@ def cell_major_from_numpy(boards: np.ndarray,
 def table_from_numpy(table: np.ndarray,
                      device: str | torch.device = "cuda") -> torch.Tensor:
     """An n-tuple table as numpy (any shape) -> flat contiguous float32
-    tensor on ``device``, the layout :mod:`models.ntuple_big` reads."""
+    tensor on ``device``, the layout :mod:`models.ntuple` and
+    :mod:`models.ntuple_big` read."""
     return torch.from_numpy(np.ascontiguousarray(table, np.float32).reshape(-1)
                             ).to(device)
 
@@ -63,19 +65,22 @@ def train_state_from_numpy(d: Mapping[str, np.ndarray],
     return state
 
 
-def network_from_config(cfg: Mapping) -> NTupleNetwork:
-    """The port's :class:`NTupleNetwork` for a JAX n-tuple config (the
-    ``config`` of a table's meta, or the meta itself): a named ``arch`` of
-    ``LAYOUTS`` or explicit ``tuples``, with ``n_vals`` (default 16) and
-    ``thresholds`` (default none). ``arch == "small"`` is the small 17 x
-    4-cell net, which the port does not have yet."""
+def network_from_config(cfg: Mapping, value_impl: str = "auto"):
+    """The port's network for a JAX n-tuple config (the ``config`` of a
+    table's meta, or the meta itself): a named ``arch`` of ``LAYOUTS`` or
+    explicit ``tuples``, with ``n_vals`` (default 16) and ``thresholds``
+    (default none), gives an :class:`NTupleNetwork`; ``arch == "small"``,
+    which a config without ``arch`` means, gives the small 17 x 4-cell net
+    as a :class:`~gym2048_tpu_torch.models.ntuple.SmallNet` read by
+    ``value_impl`` (auto, gather, mxu or mxu_bf16; the big nets have one
+    lookup and ignore it). Either one's ``value_batch(params, boards)``
+    reads the table as ``params``, the small net's after its
+    ``params(table)``."""
     n_vals = int(cfg.get("n_vals", 16))
     thresholds = tuple(int(t) for t in cfg.get("thresholds", ()))
     if cfg.get("tuples") is not None:
         return NTupleNetwork(cfg["tuples"], n_vals, thresholds)
     arch = cfg.get("arch", "small")
     if arch == "small":
-        raise ValueError("the small 17 x 4-cell n-tuple net is not ported yet "
-                         "(ROADMAP.md, Queue 1 item 3). Only the layouts of "
-                         "models/ntuple_big.py are ported")
+        return SmallNet(value_impl, thresholds)
     return make_network(arch, n_vals, thresholds)

@@ -172,7 +172,7 @@ class NTupleNetwork:
         delta`` even where its symmetries collide on an entry. Boards with
         ``valid`` False contribute nothing. Returns a new table."""
         sums, cnts = self._scatter2(boards, (alpha * 8.0 / self.n_features) * deltas,
-                                    valid)
+                                    valid, table.numel())
         return table + sums / cnts.clamp(min=1.0)
 
     def td_update_tc(self, table: torch.Tensor, tc_e: torch.Tensor,
@@ -185,7 +185,7 @@ class NTupleNetwork:
         :func:`~gym2048_tpu_torch.models.ntuple._tc_combine`. Returns new
         ``(table, tc_e, tc_a)``."""
         w0 = (8.0 / self.n_features) * deltas
-        sums, absums, cnts = self._scatter3(boards, w0, valid)
+        sums, absums, cnts = self._scatter3(boards, w0, valid, table.numel())
         return _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha)
 
     def tc_accumulate(self, pending: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -221,23 +221,26 @@ class NTupleNetwork:
             idx = torch.where(keep, idx, 0)
         return idx, w, keep
 
-    def _scatter2(self, boards, w_board, valid):
+    def _scatter2(self, boards, w_board, valid, size=None):
         idx, w, keep = self._flat_updates(boards, w_board, valid)
-        return self._scatter_add(idx, (w, torch.ones_like(w)), keep)
+        return self._scatter_add(idx, (w, torch.ones_like(w)), keep, size)
 
-    def _scatter3(self, boards, w_board, valid):
+    def _scatter3(self, boards, w_board, valid, size=None):
         idx, w, keep = self._flat_updates(boards, w_board, valid)
-        return self._scatter_add(idx, (w, w.abs(), torch.ones_like(w)), keep)
+        return self._scatter_add(idx, (w, w.abs(), torch.ones_like(w)), keep, size)
 
-    def _scatter_add(self, idx, payloads, keep=None):
+    def _scatter_add(self, idx, payloads, keep=None, size=None):
         """Scatter-add each scalar channel of ``payloads`` at the shared flat
-        ``idx`` into a zero table-sized array: one ``index_add_`` per
-        channel, as the JAX module's "scatter" mode has one scatter per
-        channel. Its "rows" mode (one-hot 128-lane rows, for the TPU) gives
-        the same sums and takes this path too."""
+        ``idx`` into a zero array of ``size`` entries (the table's; more
+        where a small-net table holds stages that the update does not
+        touch): one ``index_add_`` per channel, as the JAX module's
+        "scatter" mode has one scatter per channel. Its "rows" mode
+        (one-hot 128-lane rows, for the TPU) gives the same sums and takes
+        this path too."""
         if keep is not None:
             payloads = tuple(torch.where(keep, p, 0.0) for p in payloads)
-        return tuple(torch.zeros(self.table_size, dtype=torch.float32, device=idx.device)
+        size = self.table_size if size is None else size
+        return tuple(torch.zeros(size, dtype=torch.float32, device=idx.device)
                      .index_add_(0, idx, p) for p in payloads)
 
 

@@ -1,2 +1,2 @@
 """Learners (counterpart of ``gym2048_tpu.train``; only the TD trainer of the
-big n-tuple networks is ported yet)."""
+n-tuple networks is ported yet)."""

@@ -1,9 +1,10 @@
-"""TD(0) afterstate learning of the big n-tuple networks, in PyTorch.
+"""TD(0) afterstate learning of the n-tuple networks, in PyTorch.
 
-Counterpart of ``gym2048_tpu/train/td.py`` for the layouts of
-:mod:`gym2048_tpu_torch.models.ntuple_big` (``arch != "small"``). A value
-function V over afterstates (the board after the slide, before the spawn)
-is learnt by one-step temporal differences:
+Counterpart of ``gym2048_tpu/train/td.py``, for the small 17 x 4-cell net
+of :mod:`gym2048_tpu_torch.models.ntuple` (``arch == "small"``, the
+default) and the layouts of :mod:`gym2048_tpu_torch.models.ntuple_big`. A
+value function V over afterstates (the board after the slide, before the
+spawn) is learnt by one-step temporal differences:
 
     a*  = argmax_a [ r(s, a) + V(after(s, a)) ]
     TD:   V(after(s, a*)) += alpha * (r' + V(after(s'', a*')) - V(after))
@@ -12,11 +13,18 @@ Thousands of games advance in lockstep. Each step evaluates the 4 candidate
 afterstates of every board with one lookup (the table gather kernel on the
 card), updates the table for the previous step's afterstate by a
 count-normalised scatter, spawns, and restarts finished games. Options, as
-in JAX: temporal coherence (``tc``, per-entry adaptive rates), delayed TC
-(``tc_every``: the table-sized TC combine once per window of steps, the
-statistics scatter-accumulated in between), staged tables (``thresholds``)
-and carousel restarts (``carousel``: finished games restart from recorded
-stage-entry boards), all from arXiv:1604.05085.
+in JAX: temporal coherence (``tc``, per-entry adaptive rates); for the big
+nets also delayed TC (``tc_every``: the table-sized TC combine once per
+window of steps, the statistics scatter-accumulated in between), staged
+tables (``thresholds``) and carousel restarts (``carousel``: finished games
+restart from recorded stage-entry boards), all from arXiv:1604.05085.
+
+The small net's value modes are the JAX package's: ``"gather"`` (the exact
+lookup; ``"auto"`` here, as in JAX off the TPU), ``"mxu"`` (two lookups into
+the bf16 split halves of the table, split once a step) and ``"mxu_bf16"``
+(the ``hi`` half alone). Its ``update_impl`` ``"mxu"`` names a matmul form
+of the scatter for the TPU with the scatter's sums; every choice runs the
+scatter here.
 
 Randomness: one ``torch.Generator`` on the trainer's device, seeded from
 ``TDConfig.seed``, takes the place of the JAX key. It is carried in the
@@ -26,12 +34,13 @@ step body takes them as an argument, so the body can be fed the numbers
 JAX drew. The steps of a chunk are a Python loop with no host sync;
 :meth:`TDTrainer.learn` syncs once per logged chunk.
 
-Not ported here: the small 17 x 4-cell net (``arch == "small"``) and the
-data-parallel chunk (``make_sharded_chunk``, ``shard_td_state``,
-``--sharded``); each raises and names its item in ``ROADMAP.md``.
+Not ported here: the data-parallel chunk (``make_sharded_chunk``,
+``shard_td_state``, ``--sharded``); each raises and names its item in
+``ROADMAP.md``.
 
-Run: ``python -m gym2048_tpu_torch.train.td --arch 4x6 --tc --alpha 1
---alpha-final 1 --init-value 0`` on the card, ``--device cpu`` on the CPU.
+Run: ``python -m gym2048_tpu_torch.train.td`` (the small net) or ``--arch
+4x6 --tc --alpha 1 --alpha-final 1 --init-value 0`` on the card, ``--device
+cpu`` on the CPU.
 """
 
 from __future__ import annotations
@@ -47,13 +56,10 @@ import torch
 from gym2048_tpu_torch import interop
 from gym2048_tpu_torch.core import rules
 from gym2048_tpu_torch.env.batched import _fresh_boards
-from gym2048_tpu_torch.models import ntuple_big
+from gym2048_tpu_torch.models import ntuple, ntuple_big
 from gym2048_tpu_torch.models.ntuple import _tc_combine, stage_of_batch
 from gym2048_tpu_torch.utils.checkpoint import load_model, save_model
 
-SMALL_NOT_PORTED = ("the small 17 x 4-cell n-tuple net is not ported yet (ROADMAP.md, "
-                    "Queue 1 item 3); train a layout of models/ntuple_big.py "
-                    f"({', '.join(sorted(ntuple_big.LAYOUTS))})")
 SHARDED_NOT_PORTED = ("data-parallel TD training is not ported yet (ROADMAP.md, "
                       "Queue 1 item 7)")
 
@@ -64,8 +70,9 @@ _SYNC_EVERY = 64  # play_greedy's moves between host checks for a live game
 @dataclasses.dataclass(frozen=True)
 class TDConfig:
     """The JAX ``TDConfig``, every field with its default. ``update_impl``
-    and ``value_impl`` name the JAX package's implementations; for the big
-    nets every choice is the one scatter and the one lookup here."""
+    and ``value_impl`` name the JAX package's implementations; every update
+    choice is the one scatter here, and for the big nets every value choice
+    the one lookup (the small net's are in the module docstring)."""
 
     total_steps: int = 200_000_000  # env steps (board-moves) to train for
     n_envs: int = 4096
@@ -79,7 +86,8 @@ class TDConfig:
     # temporal-coherence learning (Beal & Smith): per-entry adaptive rates
     # |sum(deltas)| / sum(|deltas|); set alpha = alpha_final = 1.0
     tc: bool = False
-    # "small" (not ported) or a layout of models/ntuple_big.LAYOUTS
+    # "small" (the 17x4-cell net of models/ntuple.py) or a layout of
+    # models/ntuple_big.LAYOUTS
     arch: str = "small"
     n_vals: int = 16            # exponent domain per cell of the big nets
     thresholds: tuple[int, ...] = ()  # max-tile-exponent stage boundaries
@@ -156,15 +164,27 @@ class TDLogEntry:
 
 
 class TDTrainer:
-    """Batched TD(0) afterstate trainer of a big n-tuple network on
-    ``device`` (the card unless the caller passes ``"cpu"``)."""
+    """Batched TD(0) afterstate trainer of an n-tuple network on ``device``
+    (the card unless the caller passes ``"cpu"``). ``_net`` is the big
+    network, None for the small net (as in JAX), whose value mode is
+    ``_small``. The JAX trainer's assertions raise ``ValueError``."""
 
     def __init__(self, config: TDConfig | None = None,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg = config or TDConfig()
         self.device = torch.device(device)
+        self._net = self._small = None
         if cfg.arch == "small":
-            raise NotImplementedError(SMALL_NOT_PORTED)
+            if cfg.tc_every != 1 or cfg.carousel:
+                raise ValueError("tc_every/carousel are big-net staged-training features")
+            if cfg.thresholds:
+                raise ValueError("staged training is configured via promote_table for the "
+                                 "small net; thresholds apply to big-net archs")
+            if cfg.update_impl not in ("auto", "scatter", "mxu"):
+                raise ValueError(f"the small net's update_impl is auto, scatter or mxu, "
+                                 f"got {cfg.update_impl!r}")
+            self._small = ntuple.SmallNet(cfg.value_impl)
+            return
         vimpl = "gather" if cfg.value_impl in ("auto", "mxu", "mxu_bf16") else cfg.value_impl
         uimpl = "scatter" if cfg.update_impl in ("auto", "mxu") else cfg.update_impl
         self._net = ntuple_big.make_network(cfg.arch, cfg.n_vals, cfg.thresholds,
@@ -191,7 +211,10 @@ class TDTrainer:
         cfg, dev = self.cfg, self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-        table = self._net.init_table(cfg.init_value, device=dev)
+        if self._net is not None:
+            table = self._net.init_table(cfg.init_value, device=dev)
+        else:  # per entry x gives value(board) = 136 x / 8 = 17 x
+            table = ntuple.init_table(cfg.init_value / ntuple.N_TUPLES, device=dev)
         boards = _fresh_boards(torch.rand((cfg.n_envs, 4), generator=generator, device=dev))
         state = {
             "table": table,
@@ -234,10 +257,16 @@ class TDTrainer:
         ``tc_ps`` / ``tc_pa`` / ``tc_pc`` buffers instead of applying the
         table-sized combine (the inner step of delayed TC)."""
         cfg, net = self.cfg, self._net
+        if net is not None:
+            values, update_td, update_tc = net, net.td_update, net.td_update_tc
+        else:
+            values, update_td, update_tc = self._small, ntuple.td_update, ntuple.td_update_tc
 
         def body(carry: dict, draws: dict):
             table, boards, score = carry["table"], carry["boards"], carry["score"]
-            _, after, r, v_after, alive = _greedy_batch(net.make_value_fn(table), boards)
+            # the small net's "mxu" modes split the table once a step, as in JAX
+            value_fn = values.make_value_fn(table)
+            _, after, r, v_after, alive = _greedy_batch(value_fn, boards)
 
             # TD update of the PREVIOUS afterstate, whose successor is
             # `boards`: target r + V(after) if a move exists, else 0.
@@ -250,12 +279,12 @@ class TDTrainer:
                 new.update(zip(_PENDING, net.tc_accumulate(
                     pending, carry["prev_after"], delta, valid=carry["prev_valid"])))
             elif cfg.tc:
-                new["table"], new["tc_e"], new["tc_a"] = net.td_update_tc(
+                new["table"], new["tc_e"], new["tc_a"] = update_tc(
                     table, carry["tc_e"], carry["tc_a"], carry["prev_after"], delta,
                     alpha, valid=carry["prev_valid"])
             else:
-                new["table"] = net.td_update(table, carry["prev_after"], delta, alpha,
-                                             valid=carry["prev_valid"])
+                new["table"] = update_td(table, carry["prev_after"], delta, alpha,
+                                         valid=carry["prev_valid"])
 
             next_state = rules.spawn(after, draws["spawn_val"], draws["spawn_pos"])
 
@@ -454,18 +483,16 @@ def is_train_state(path) -> bool:
 def play_greedy(table: torch.Tensor, episodes: int,
                 generator: torch.Generator | None = None, move_cap: int = 30000,
                 value_impl: str = "auto", net=None) -> dict:
-    """Play ``episodes`` full games with the greedy afterstate policy of the
-    big network ``net`` over ``table``, on the table's device (evaluation).
-    ``value_impl`` is ignored, as in JAX when ``net`` is given; without
-    ``net`` (the small net) this raises. The host checks whether any game
-    is live every 64 moves (JAX's loop runs on the device); moves past the
-    end change nothing."""
-    if net is None:
-        raise NotImplementedError(SMALL_NOT_PORTED)
+    """Play ``episodes`` full games with the greedy afterstate policy over
+    ``table``, on the table's device (evaluation): of the big network
+    ``net``, or without ``net`` of the small net read by ``value_impl``
+    (``"auto"`` is the exact ``"gather"``; ignored when ``net`` is given,
+    as in JAX). The host checks whether any game is live every 64 moves
+    (JAX's loop runs on the device); moves past the end change nothing."""
     dev = table.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    value_fn = net.make_value_fn(table)
+    value_fn = (net if net is not None else ntuple.SmallNet(value_impl)).make_value_fn(table)
     boards = _fresh_boards(torch.rand((episodes, 4), generator=generator, device=dev))
     total = torch.zeros(episodes, dtype=torch.float32, device=dev)
     moves = torch.zeros(episodes, dtype=torch.int32, device=dev)
@@ -505,7 +532,7 @@ def main(argv: list[str] | None = None) -> None:
     import json
 
     p = argparse.ArgumentParser(
-        description="TD(0) afterstate training of a big n-tuple network (PyTorch).")
+        description="TD(0) afterstate training of an n-tuple network (PyTorch).")
     p.add_argument("--steps", type=int, default=TDConfig.total_steps)
     p.add_argument("--envs", type=int, default=TDConfig.n_envs)
     p.add_argument("--alpha", type=float, default=TDConfig.alpha)
@@ -517,15 +544,16 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--update-impl", choices=("auto", "scatter", "mxu", "rows"),
                    default="auto",
-                   help="the JAX package's table update paths; for the big nets all "
-                   "are the one scatter here")
+                   help="the JAX package's table update paths (mxu: small net, rows: "
+                   "big nets); all are the one scatter here")
     p.add_argument("--value-impl", choices=("auto", "gather", "mxu", "mxu_bf16", "rows"),
                    default="auto",
-                   help="the JAX package's lookup paths; for the big nets all are the "
-                   "one lookup kernel here")
+                   help="the small net's lookups: gather (auto; exact), mxu (the bf16 "
+                   "split halves, ~2**-16), mxu_bf16 (the hi half, ~0.4%%); for the big "
+                   "nets every choice is the one lookup kernel")
     p.add_argument("--arch", default="small",
-                   help='"small" (not ported yet) or a layout of models/ntuple_big.LAYOUTS '
-                   "(4x6, 5x6, 4x6_4x4)")
+                   help='"small" (the 17x4-cell net) or a layout of '
+                   "models/ntuple_big.LAYOUTS (4x6, 5x6, 4x6_4x4)")
     p.add_argument("--n-vals", type=int, default=TDConfig.n_vals,
                    help="exponent domain per cell (clip above)")
     p.add_argument("--thresholds", type=int, nargs="*", default=[],
@@ -556,8 +584,10 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu for the plain path)")
     args = p.parse_args(argv)
-    if args.arch == "small":
-        p.error(SMALL_NOT_PORTED)
+    if args.arch == "small" and "rows" in (args.update_impl, args.value_impl):
+        p.error('--update-impl/--value-impl "rows" applies to the big-net architectures '
+                'only (--arch 4x6/5x6/4x6_4x4); the small net supports auto/scatter/mxu '
+                'updates and auto/gather/mxu/mxu_bf16 values')
     if args.sharded:
         p.error(SHARDED_NOT_PORTED)
 

@@ -11,13 +11,20 @@ Tolerances, with their reasons:
   table of small non-negative integers (values and scores >= 0, so no sum
   cancels) to rtol 1e-6, and its actions must agree wherever the best two
   Q-values of a board differ by more than that;
+* the small net's policies over a table of small integers are exact in
+  both packages and in every value mode: equal actions. Over the committed
+  trained table, Q within 1e-5 relative (1e-4 for the split lookup, whose
+  ``lo`` half is bf16 in the port and f32 in JAX on the CPU) and the
+  actions equal where the best two differ by more;
 * games draw their spawns from different generators in the two packages,
   so whole games are compared by their statistics: mean length and score
   within 4 standard errors.
 """
 
 import json
+import pickle
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,10 +33,13 @@ import pytest
 import torch
 
 from gym2048_tpu.agents import expectimax as jx
+from gym2048_tpu.models import ntuple as jnt
 from gym2048_tpu.models import ntuple_big as jnb
 from gym2048_tpu.utils.checkpoint import save_model
+from gym2048_tpu_torch import interop
 from gym2048_tpu_torch.agents import expectimax as tx
 from gym2048_tpu_torch.core import rules as trules
+from gym2048_tpu_torch.models import ntuple as tnt
 from gym2048_tpu_torch.models import ntuple_big as tnb
 
 # a small staged network: two 4-cell tuples, stages at exponents 6 and 8
@@ -37,6 +47,17 @@ TUPLES = ((0, 1, 2, 3), (0, 1, 4, 5))
 THRESHOLDS = (6, 8)
 JNET = jnb.NTupleNetwork(TUPLES, 16, THRESHOLDS)
 TNET = tnb.NTupleNetwork(TUPLES, 16, THRESHOLDS)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: the test workers share
+    the CPU's cores, and torch's thread pools contending with each other
+    ran a training test here 30 times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def int_table(seed=0, high=64):
@@ -255,12 +276,78 @@ def test_cli_table_mode_on_cpu(tmp_path, capsys, mode):
     assert out["episodes"] == 2 and out["Average score"] >= 0
 
 
-def test_cli_small_table_names_the_later_slice(tmp_path, capsys):
-    path = tmp_path / "small.pkl"
-    save_model(path, {"table": np.zeros(8, np.float32)})
-    with pytest.raises(SystemExit):
-        tx.main(["--table", str(path), "--device", "cpu"])
-    assert "not ported yet" in capsys.readouterr().err
+TC1B = Path(__file__).resolve().parent.parent / "docs" / "curves" / "ntuple_table_tc1b.pkl"
+
+
+@pytest.mark.parametrize("impl", ["auto", "gather", "mxu", "mxu_bf16"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_cli_small_table_names_the_later_slice(capsys, depth, impl):
+    """The committed small table, which the CLI refused while the small net
+    waited for a later slice, plays through the CLI with each
+    ``--value-impl``."""
+    tx.main(["--table", str(TC1B), "--episodes", "2", "--depth", str(depth), "--move-cap",
+             "24", "--chunk-moves", "8", "--value-impl", impl, "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["episodes"] == 2 and out["Average score"] > 0 and out["depth"] == depth
+
+
+def small_value_fns(impl):
+    """The small net's value function ``(params, boards)`` in each package,
+    and each package's params for a table."""
+    tnet = tnt.SmallNet(impl)
+    if impl == "gather":
+        jparams = lambda tb: tb  # noqa: E731
+        jvalue = jnt.value_batch
+    else:
+        def jparams(tb):
+            hi, lo = jnt.split_table(tb)
+            return hi, (lo if impl == "mxu" else None)
+
+        def jvalue(p, bs):
+            return jnt.value_batch_mxu(p[0], p[1], bs)
+    return tnet, jparams, jvalue
+
+
+@pytest.mark.parametrize("impl", ["gather", "mxu", "mxu_bf16"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_small_table_policy_matches_jax(depth, impl):
+    """make_afterstate_policy over the small net in each value mode: on a
+    table of small non-negative integers (exact in both packages, and in
+    both bf16 halves) the actions equal JAX's; on the committed trained
+    table, equal wherever JAX's best two Q-values differ by more than the
+    Q tolerance: 1e-5 relative (sums in different orders), 1e-4 for "mxu",
+    where the port's ``lo`` is bf16 and JAX's on the CPU f32 (2**-16 of
+    the entries' magnitudes, which exceed the value where entries
+    cancel)."""
+    tnet, jparams, jvalue = small_value_fns(impl)
+    b = np.concatenate([boards(24, 30 + depth, max_exp=11), special_boards()])
+    jpol = jax.jit(jx.make_afterstate_policy(jvalue, depth=depth, parametrised=True))
+    tpol = tx.make_afterstate_policy(tnet.value_batch, depth=depth, parametrised=True)
+    table = np.random.default_rng(depth).integers(0, 200, tnt.STAGE_STRIDE).astype(np.float32)
+    got = tpol(tnet.params(torch.from_numpy(table)), torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jpol(jparams(jnp.asarray(table)), jnp.asarray(b))))
+    with open(TC1B, "rb") as f:
+        trained = np.asarray(pickle.load(f)["variables"]["table"], np.float32)
+    jvf = lambda bs: jvalue(jparams(jnp.asarray(trained)), bs)  # noqa: E731
+    want = jax.jit(lambda x: jx._afterstate_search(jvf, x, depth, False, True))(jnp.asarray(b))
+    tparams = tnet.params(torch.from_numpy(trained))
+    q = tx._afterstate_search(lambda bs: tnet.value_batch(tparams, bs), torch.from_numpy(b),
+                              depth, False, True)
+    assert_q_close(q.numpy(), want, rtol=1e-4 if impl == "mxu" else 1e-5)
+    actions = tpol(tparams, torch.from_numpy(b))
+    legal = trules.move_all(torch.from_numpy(b))[2]
+    live = legal.any(-1)
+    assert legal.gather(1, actions[:, None].long())[live].all()
+
+
+def test_network_from_config_gives_the_small_net():
+    for cfg in ({}, {"arch": "small"}, {"arch": "small", "value_impl": "mxu"}):
+        net = interop.network_from_config(cfg, "mxu")
+        assert isinstance(net, tnt.SmallNet) and net.value_impl == "mxu"
+    assert interop.network_from_config({}).value_impl == "gather"
+    with pytest.raises(ValueError):
+        interop.network_from_config({}, "rows")
 
 
 def test_play_batched_on_cpu():

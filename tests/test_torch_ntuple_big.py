@@ -131,5 +131,5 @@ def test_network_from_config():
     assert net.tuples == tnb.LAYOUTS["4x6"] and net.thresholds == (12, 13)
     net = interop.network_from_config({"tuples": [[0, 1, 2, 3]], "n_vals": 15})
     assert net.tuples == ((0, 1, 2, 3),) and net.n_vals == 15 and net.thresholds == ()
-    with pytest.raises(ValueError, match="small"):
-        interop.network_from_config({})
+    small = interop.network_from_config({})  # no arch: the small net
+    assert isinstance(small, tnt.SmallNet) and small.value_impl == "gather"

@@ -1,5 +1,6 @@
 """The port's TD learner (gym2048_tpu_torch.train.td and the TD updates of
-models.ntuple_big) against gym2048_tpu.train.td on the same numpy inputs.
+models.ntuple_big and models.ntuple) against gym2048_tpu.train.td on the
+same numpy inputs.
 
 Tolerances, with their reasons:
 
@@ -18,6 +19,15 @@ Tolerances, with their reasons:
   which of two writes to one slot stays is undefined on both sides: row 0
   of the reservoir is not compared, and the draws are checked to give the
   crossing envs distinct slots.
+* A chunk of the small net from JAX's ``init_state`` (an empty table) is
+  exact for its first two steps: every value is 0 until the first update
+  lands. From then on each package adds a board's 136 entries in its own
+  order, and a board's symmetric afterstates, equal in exact arithmetic,
+  differ by an ulp either way: the greedy choice between them, and with it
+  the game, may differ. So the later steps of JAX's own chunk are each
+  re-run from JAX's carry with its table (and TC accumulators) replaced by
+  small integers and ``prev_v`` by dyadic values, where both packages'
+  arithmetic is exact: each step is compared bit for bit.
 * Training draws its own random numbers in each package, so learning is
   checked by its statistics: greedy play after a short run beats random
   play.
@@ -50,6 +60,17 @@ NETS = {"small": SMALL,
 # a trainer config both packages take: 4x6 at n_vals 4, stages at 2 and 3
 BASE = dict(arch="4x6", n_vals=4, thresholds=(2, 3), alpha=0.5, alpha_final=0.5,
             init_value=0.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file's tests: the test workers share
+    the CPU's cores, and torch's thread pools contending with each other
+    ran a training test here 30 times slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def nets(name):
@@ -433,8 +454,8 @@ def test_scan_steps_leaves_no_pending_buffers():
 
 
 def test_trainer_checks_match_jax():
-    """The big-arch checks of JAX's TDTrainer, as ValueError; the parts
-    not ported raise and name their ROADMAP.md item."""
+    """The checks of JAX's TDTrainer, big arch and small, as ValueError;
+    the parts not ported raise and name their ROADMAP.md item."""
     for bad in (dict(tc_every=4, tc=False), dict(tc_every=4, tc=True, chunk_steps=10),
                 dict(tc_every=4, tc=True, update_impl="rows"),
                 dict(carousel=0.5, thresholds=()), dict(carousel=1.5)):
@@ -442,10 +463,17 @@ def test_trainer_checks_match_jax():
             ttd.TDTrainer(ttd.TDConfig(**{**BASE, "chunk_steps": 8, **bad}), device="cpu")
         with pytest.raises(AssertionError):
             jtd.TDTrainer(jtd.TDConfig(**{**BASE, "chunk_steps": 8, **bad}))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ttd.TDTrainer(ttd.TDConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ttd.play_greedy(torch.zeros(4), 1)
+    for bad in (dict(tc_every=2, tc=True), dict(carousel=0.5), dict(thresholds=(11, 12)),
+                dict(update_impl="rows"), dict(value_impl="rows")):
+        with pytest.raises(ValueError):
+            ttd.TDTrainer(ttd.TDConfig(chunk_steps=8, **bad), device="cpu")
+        with pytest.raises(AssertionError):
+            jtd.TDTrainer(jtd.TDConfig(chunk_steps=8, **bad))
+    tr = ttd.TDTrainer(ttd.TDConfig(), device="cpu")
+    assert tr._net is None and tr._small.value_impl == "gather"  # auto: the exact lookup
+    for impl in ("gather", "mxu", "mxu_bf16"):
+        assert ttd.TDTrainer(ttd.TDConfig(value_impl=impl, update_impl="mxu"),
+                             device="cpu")._small.value_impl == impl
     tr = ttd.TDTrainer(ttd.TDConfig(**BASE), device="cpu")
     for call in (lambda: tr.make_sharded_chunk(None), lambda: ttd.shard_td_state({}, None),
                  lambda: tr.learn(mesh=object())):
@@ -550,7 +578,7 @@ def test_cli_on_the_cpu_writes_a_table(tmp_path, capsys):
     assert "resumed full train state at chunk 2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags, item", [([], "Queue 1 item 3"),
+@pytest.mark.parametrize("flags, item", [(["--sharded"], "Queue 1 item 7"),
                                          (["--arch", "4x6", "--sharded"], "Queue 1 item 7")])
 def test_cli_names_what_is_not_ported(flags, item, capsys):
     with pytest.raises(SystemExit):
@@ -570,3 +598,166 @@ def test_learning_beats_random_play():
                           net=tr._net)
     assert res["Average score"] > 2000.0
     assert res["Highest tile"] >= 256
+
+
+# ------------------------------------------------------------ the small net
+
+def small_exact_carry(carry, seed, tc):
+    """JAX's carry with its float leaves replaced where the step's
+    arithmetic is exact in both packages: the table (and TC accumulators)
+    small integers, ``prev_v`` dyadic. Boards, score, ``prev_after``,
+    ``prev_valid`` and the key stay JAX's."""
+    rng = np.random.default_rng(seed)
+    size = jnt.STAGE_STRIDE
+    out = dict(carry, table=rng.integers(-8, 8, size).astype(np.float32),
+               prev_v=dyadic(rng, carry["prev_v"].shape[0]))
+    if tc:
+        out["tc_e"] = rng.integers(-4, 4, size).astype(np.float32)
+        out["tc_a"] = np.abs(out["tc_e"]) + rng.integers(0, 3, size).astype(np.float32)
+    return out
+
+
+def assert_carries_equal(got, want, what):
+    assert set(got) == set(want) - {"key"}, what
+    for k in got:
+        assert_bits(got[k], want[k], f"{what}: {k}")
+
+
+SMALL_MODES = {"td": dict(tc=False), "tc": dict(tc=True, alpha=1.0, alpha_final=1.0),
+               "td mxu": dict(tc=False, value_impl="mxu", update_impl="mxu"),
+               "td mxu_bf16": dict(tc=False, value_impl="mxu_bf16")}
+
+
+@pytest.mark.parametrize("mode", list(SMALL_MODES))
+def test_small_chunk_matches_jax(mode):
+    """A chunk of 8 steps of the small net from JAX's init_state, carried
+    across by interop.train_state_from_numpy and fed the uniforms JAX drew
+    (see the module docstring): the first two steps leave JAX's state in
+    every leaf; each later step of JAX's chunk, re-run from JAX's carry
+    with exact-arithmetic floats, leaves JAX's next carry in every leaf."""
+    n, steps = 32, 8
+    kw = {**dict(n_envs=n, init_value=0.0, alpha=0.5, alpha_final=0.5), **SMALL_MODES[mode]}
+    jtr = jtd.TDTrainer(jtd.TDConfig(**kw))
+    ttr = ttd.TDTrainer(ttd.TDConfig(**kw), device="cpu")
+    alpha = kw["alpha"]
+    jstate = jtr.init_state(jax.random.PRNGKey(7))
+    a = torch.tensor(alpha, dtype=torch.float32)
+    tcarry = interop.train_state_from_numpy({k: np.asarray(v) for k, v in jstate.items()}, "cpu")
+    assert "generator" not in tcarry
+    jbody = jtr._chunk_body(jnp.float32(alpha))
+    tbody = ttr._chunk_body(a)
+    jc, key = dict(jstate), jstate["key"]
+    with jax.disable_jit():
+        for step in range(2):
+            key, draws = jax_draws(key, n, False)
+            jc, wstats = jbody(jc, None)
+            tcarry, gstats = tbody(tcarry, draws)
+            assert_carries_equal(tcarry, jc, f"step {step}")
+            for g, w in zip(gstats, wstats):
+                assert_bits(g, w)
+    assert (tcarry["table"] != 0).any()  # the second step's update landed
+    jstep = jax.jit(jbody)
+    for step in range(2, steps):
+        carry = small_exact_carry({k: np.asarray(v) for k, v in jc.items()}, step, kw["tc"])
+        _, draws = jax_draws(jnp.asarray(carry["key"]), n, False)
+        with jax.disable_jit():
+            want, _ = jbody({k: jnp.asarray(v) for k, v in carry.items()}, None)
+        got, _ = tbody(interop.train_state_from_numpy(carry, "cpu"), draws)
+        assert_carries_equal(got, want, f"step {step}")
+        jc, _ = jstep(jc, None)  # JAX's own chunk goes on
+    assert (~np.asarray(want["prev_valid"])).sum() < n
+
+
+@pytest.mark.parametrize("impl", ["gather", "mxu", "mxu_bf16"])
+def test_small_greedy_batch_matches_jax(impl):
+    table = np.random.default_rng(12).integers(-40, 40, jnt.STAGE_STRIDE).astype(np.float32)
+    b = np.concatenate([boards(30, 13, max_exp=12), dead_boards(3), dead_boards(1, lo=5)])
+
+    def jvalue(tb, bs):
+        if impl == "gather":
+            return jnt.value_batch(tb, bs)
+        hi, lo = jnt.split_table(tb)
+        return jnt.value_batch_mxu(hi, None if impl == "mxu_bf16" else lo, bs)
+
+    want = jax.jit(lambda tb, bs: jtd._greedy_batch(lambda x: jvalue(tb, x), bs))(
+        jnp.asarray(table), jnp.asarray(b))
+    got = ttd._greedy_batch(tnt.SmallNet(impl).make_value_fn(t(table)), t(b))
+    for g, w, name in zip(got, want, ("action", "after", "reward", "v_after", "alive")):
+        assert_bits(g, w, name)
+
+
+def test_small_learning_beats_random_play():
+    """tests/test_td.py's check of the small net, on the port: after a
+    short run greedy play clearly beats random play (mean ~1000)."""
+    cfg = ttd.TDConfig(total_steps=256 * 64 * 12, n_envs=256, chunk_steps=64, alpha=0.25,
+                       alpha_final=0.1, init_value=20000.0, seed=1)
+    tr = ttd.TDTrainer(cfg, device="cpu")
+    state, history = tr.learn(log_fn=None)
+    assert history[-1].steps == cfg.total_steps
+    assert state["table"].shape == (jnt.STAGE_STRIDE,)
+    res = ttd.play_greedy(state["table"], 32, torch.Generator().manual_seed(5), move_cap=3000)
+    assert res["Average score"] > 2000.0
+    assert res["Highest tile"] >= 256
+
+
+def test_small_play_greedy_modes_agree():
+    """The exact modes play the same games on one table; the bf16 one
+    plays legal games."""
+    table = torch.from_numpy(
+        np.random.default_rng(14).integers(0, 500, jnt.STAGE_STRIDE).astype(np.float32))
+    res = {impl: ttd.play_greedy(table, 4, torch.Generator().manual_seed(2), move_cap=200,
+                                 value_impl=impl)
+           for impl in ("auto", "gather", "mxu", "mxu_bf16")}
+    assert res["auto"] == res["gather"] == res["mxu"]  # integers < 256 split exactly...
+    assert all(e["moves"] > 0 for e in res["mxu_bf16"]["Episodes"])
+
+
+def test_small_cli_trains_saves_resumes_and_evaluates(tmp_path, capsys):
+    out = tmp_path / "small.pkl"
+    ckpt = tmp_path / "ckpt.pkl"
+    args = ["--envs", "16", "--chunk-steps", "4", "--steps", "128", "--alpha", "0.5",
+            "--alpha-final", "0.25", "--init-value", "100", "--eval-episodes", "3",
+            "--value-impl", "mxu", "--update-impl", "mxu", "--device", "cpu"]
+    ttd.main(args + ["--output", str(out), "--ckpt", str(ckpt)])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["steps"] == 128 and res["Average score"] > 0
+    variables, meta = jck.load_model(out)  # the JAX package's loader
+    assert variables["table"].shape == (jnt.STAGE_STRIDE,)
+    assert meta["config"]["arch"] == "small" and meta["config"]["value_impl"] == "mxu"
+    # JAX plays the port's table
+    jres = jtd.play_greedy(jnp.asarray(variables["table"]), 2, jax.random.PRNGKey(0),
+                           move_cap=50)
+    assert jres["Average score"] >= 0
+    ttd.main(args + ["--output", str(out), "--resume", str(ckpt), "--ckpt", str(ckpt),
+                     "--steps", "192"])
+    assert "resumed full train state at chunk 2" in capsys.readouterr().out
+    state, meta = ttd.load_train_state(ckpt, "cpu")
+    assert meta["chunks_done"] == 3 and state["table"].shape == (jnt.STAGE_STRIDE,)
+    # a bare table seeds the table
+    ttd.main(args[:-2] + ["--device", "cpu", "--output", str(tmp_path / "b.pkl"),
+                          "--resume", str(out), "--steps", "64"])
+    with pytest.raises(SystemExit):
+        ttd.main(["--value-impl", "rows", "--device", "cpu"])
+    assert '"rows" applies to the big-net' in capsys.readouterr().err
+
+
+def test_small_train_state_crosses_both_ways(tmp_path):
+    """A JAX small-net train state loads in the port and trains on; the
+    port's loads in JAX's loaders, every leaf equal."""
+    cfg = dict(n_envs=16, chunk_steps=4, tc=True, alpha=1.0, alpha_final=1.0,
+               init_value=100.0, total_steps=16 * 4 * 3, seed=3)
+    jtr = jtd.TDTrainer(jtd.TDConfig(**cfg))
+    jstate, _ = jtr.train_chunk(jtr.init_state(jax.random.PRNGKey(3)), jnp.float32(1.0))
+    path = tmp_path / "jax_small.pkl"
+    jtd.save_train_state(path, jstate, jtd.TDConfig(**cfg), chunks_done=1)
+    state, meta = ttd.load_train_state(path, "cpu")
+    for k in set(jstate) - {"key"}:
+        assert_bits(state[k], np.asarray(jstate[k]), k)
+    tr = ttd.TDTrainer(ttd.TDConfig(**cfg), "cpu")
+    state, hist = tr.learn(state, log_fn=None, start_chunk=1, ckpt_path=tmp_path / "t.pkl",
+                           ckpt_every=1)
+    assert hist[-1].steps == cfg["total_steps"] and torch.isfinite(state["table"]).all()
+    jvars, jmeta = jtd.load_train_state(tmp_path / "t.pkl")
+    assert jmeta["chunks_done"] == 3 and jmeta["config"]["arch"] == "small"
+    for k in ("table", "tc_e", "tc_a", "boards", "score", "prev_after", "prev_v", "prev_valid"):
+        assert_bits(state[k], np.asarray(jvars[k]), k)
