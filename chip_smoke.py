@@ -137,6 +137,7 @@ PATHS = {
     "agent": ("gather_values",),
     "td": ("gather_values",),
     "td small": ("gather_values",),
+    "ppo": (),  # the CNN, PPO's env and the optimiser: plain PyTorch, no kernel of ours
 }
 
 # The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
@@ -207,6 +208,39 @@ TD_SMALL_LEARN_BAND = (24_000.0, 56_000.0)
 GREEDY_GAMES = 256
 GREEDY_MIN = 10_000.0      # JAX's greedy play at 150M steps: 46,949 (td_eval.json)
 SMALL_AGENT_GAMES, SMALL_AGENT_MOVE_CAP = 64, 512
+
+# The CNN path (phases 19a-19e): ActorCritic(64, 4), the model the repo trains
+# and ships (the meta of docs/curves/ppo_{long,masked,tpu}_model.pkl).
+CNN_FILTERS, CNN_BLOCKS = 64, 4
+FORWARD_BATCHES = (256, 4096, 16384)  # entry(); a rollout step; an update minibatch
+FORWARD_CHECK_BATCHES = (256, 4096)   # held against the CPU with TF32 off
+# bench.py::bench_ppo: the production shape (4096 envs x 128 steps, batch
+# 16,384, 4 epochs, the sharded shuffle; bf16, and the same in f32) and the
+# reference's SB3 defaults (8 envs x 2048 steps, batch 256, 4 epochs, f32)
+PPO_PRODUCTION = dict(total_timesteps=10**9, n_envs=4096, n_steps=128, batch_size=16384,
+                      shuffle_mode="sharded")
+PPO_REFERENCE = dict(total_timesteps=10**9)
+PPO_TIMED_ITERATIONS = 3
+# The profiled iteration's n_steps (production, reference): its rollout steps
+# and SGD steps both scale with n_steps, so kernels an iteration scale too
+PPO_PROFILE_STEPS = (8, 32)
+# docs/curves/ppo_tpu_config.jsonl: the CLI at the commit that logged it (f32:
+# it had no --bf16; the global shuffle: it passed no shuffle_mode) with
+# --n-envs 4096 --n-steps 128 --batch-size 16384 --log2-rewards (its
+# value_loss, 90.3 at row 1, is the log2 scale's), seed 42 (the CLI's); 524,288
+# steps a row. It logged ep_return_mean 51.7 and 58.3 at rows 1-2, 260.3 and
+# 277.2 at rows 11-12.
+PPO_LEARN = dict(total_timesteps=10**9, n_envs=4096, n_steps=128, batch_size=16384,
+                 log2_rewards=True)
+PPO_LEARN_ITERATIONS = 12
+PPO_FIRST_BAND = (35.0, 75.0)  # the untrained policy's ep_return_mean
+PPO_LAST_MIN, PPO_GAIN_MIN = 150.0, 2.0
+# BC: build_bc_trainer_for_ppo() for one epoch over boards labelled by the
+# rule of tests/test_train.py::synthetic_dataset (exponents 0-7, argmax % 4)
+BC_SAMPLES, BC_ACCURACY_MIN = 262_144, 0.6
+EVAL_EPISODES, LEAF_BOARDS_CNN = 512, 64
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 PHILOX_KAT = [  # Random123 known answers: counter, key, result
     ((0, 0, 0, 0), (0, 0),
@@ -541,6 +575,88 @@ def timed_chunks(trainer, state, chunks: int):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return state, secs, metrics
+
+
+def cnn_flops_per_board(filters: int, blocks: int) -> float:
+    """FLOPs (2 per multiply-add) of one ActorCritic forward on a 4 x 4
+    board: the 3x3 convolutions (16 -> filters, then 2 per block) at 16
+    positions and the two dense heads; BatchNorm and ReLU are left out."""
+    macs = 16 * (16 * 9 * filters + 2 * blocks * 9 * filters * filters) + 16 * filters * 5
+    return 2.0 * macs
+
+
+def ppo_iteration_flops(cfg) -> float:
+    """FLOPs of one PPO iteration counted from the code: ``n_steps + 1``
+    forwards of ``n_envs`` boards in the rollout, and per epoch a forward
+    and a backward (3 forwards' worth) of every sample in the update."""
+    per_board = cnn_flops_per_board(cfg.filters, cfg.residual_blocks)
+    return per_board * ((cfg.n_steps + 1) * cfg.n_envs + 3 * cfg.n_epochs * cfg.rollout_size)
+
+
+@contextlib.contextmanager
+def tf32(enabled: bool):
+    """cuDNN's and cuBLAS's TF32 for float32 set to ``enabled`` within the
+    block, restored after (torch's defaults: cuDNN on, cuBLAS off)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want| of tensor pairs, on the
+    host in float64."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        check(g.shape == w.shape and g.dtype == w.dtype, "shape or dtype differs")
+        w = w.detach().cpu().double()
+        diff = (g.detach().cpu().double() - w).abs().max().item()
+        worst = max(worst, diff / max(w.abs().max().item(), 1e-30))
+    return worst
+
+
+class SyncTimer:
+    """Wrap methods of an object so that each call is host-timed to a
+    device sync; ``seconds[name]`` lists the calls' seconds."""
+
+    def __init__(self, obj, names):
+        self.seconds = {name: [] for name in names}
+        for name in names:
+            setattr(obj, name, self._timed(name, getattr(obj, name)))
+
+    def _timed(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+
+def profile_device(fn) -> tuple[float, float, int, list[tuple[str, float]]]:
+    """``torch.profiler`` over one call of ``fn``: ``(wall us, device busy
+    us, device kernels, the five largest kernels with their share of the
+    busy time)``; busy 0 if the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in device)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
+    return (wall_us, busy, sum(e.count for e in device),
+            [(short_kernel_name(e.key), e.self_device_time_total / max(busy, 1e-30))
+             for e in top])
 
 
 def nvidia_smi_line() -> str:
@@ -1604,11 +1720,250 @@ class Smoke:
                 f"every live action legal, first {REPLAY_MOVES} moves identical to the plain "
                 f"lookup's; on {self.smi}")
 
+    # 19a
+    def cnn_forward(self) -> str:
+        """``entry()``'s ActorCritic(64, 4) in eval mode: its outputs at 256
+        boards; the card against the port's CPU forward on the same weights
+        with TF32 off; device ms per forward (a graph replay) at 256, 4096
+        and 16,384 boards in f32 at torch's defaults (cuDNN TF32 on, cuBLAS
+        off), f32 with TF32 off, and bf16."""
+        import copy
+
+        from gym2048_tpu_torch import entry
+        from gym2048_tpu_torch.models import resnet
+
+        fn, (model, boards) = entry.entry(device=self.dev)
+        check(tuple(boards.shape) == (256, 4, 4) and boards.dtype == torch.int8
+              and boards.device.type == self.dev.type, "entry()'s boards")
+        check((model.filters, model.residual_blocks) == (CNN_FILTERS, CNN_BLOCKS)
+              and not model.training, "entry()'s model")
+        logits, value = fn(model, boards)
+        check(tuple(logits.shape) == (256, 4) and tuple(value.shape) == (256,)
+              and logits.dtype == value.dtype == torch.float32
+              and bool(torch.isfinite(logits).all() & torch.isfinite(value).all()),
+              "entry()'s outputs")
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == 310_405, f"{n_params} parameters, not 310,405")
+        cpu_model = copy.deepcopy(model).cpu()
+        rng = np.random.default_rng(SEED)
+        errs = []
+        with tf32(False):
+            for n in FORWARD_CHECK_BATCHES:
+                b = torch.as_tensor(random_boards(rng, n, 15, 0.4))
+                errs.append(rel_err(fn(model, b.to(self.dev)), fn(cpu_model, b)))
+        check(max(errs) <= 1e-5, f"card vs CPU forward: relative error {max(errs)}")
+        bf16_model = resnet.ActorCritic(CNN_FILTERS, CNN_BLOCKS, torch.bfloat16, self.dev)
+        bf16_model.load_state_dict(model.state_dict())
+        per_board = cnn_flops_per_board(CNN_FILTERS, CNN_BLOCKS)
+        parts = []
+        for n in FORWARD_BATCHES:
+            b = torch.as_tensor(random_boards(rng, n, 15, 0.4)).to(self.dev)
+            reps = 20 if n <= 4096 else 5
+            f32_ms = graph_ms(lambda: fn(model, b), reps)
+            with tf32(False):
+                strict_ms = graph_ms(lambda: fn(model, b), reps)
+            bf16_ms = graph_ms(lambda: fn(bf16_model, b), reps)
+            bf16_err = rel_err(fn(bf16_model, b)[:1], fn(model, b)[:1])
+            parts.append(
+                f"B={n}: f32 {f32_ms:.4f} ms ({per_board * n / f32_ms / 1e9:.1f} TFLOP/s), "
+                f"f32 TF32 off {strict_ms:.4f} ms, bf16 {bf16_ms:.4f} ms "
+                f"({per_board * n / bf16_ms / 1e9:.1f} TFLOP/s; logits within "
+                f"{bf16_err:.3g} of f32's)")
+        return (f"ActorCritic({CNN_FILTERS}, {CNN_BLOCKS}), {n_params} parameters, "
+                f"{per_board / 1e6:.3f} MFLOP a board; card vs CPU (TF32 off) within "
+                f"{max(errs):.3g} of the largest magnitude at B={FORWARD_CHECK_BATCHES} "
+                f"(limit 1e-5); device ms per forward (graph replay; f32 at torch's "
+                f"defaults, cuDNN TF32 on): " + "; ".join(parts) + f"; on {self.smi}")
+
+    def ppo_rate(self, label: str, config: dict, dtype: torch.dtype, timed: int,
+                 profile_steps: int) -> str:
+        """One ``bench_ppo`` shape: env steps/s over ``timed`` host-timed
+        iterations after a warm-up (median, spread), each synced once by
+        reading its loss as ``learn`` reads its metrics; peak memory; the
+        rollout's and the update's share of one further iteration, each
+        timed to a device sync; the FLOPs of an iteration and their rate
+        against the card's peak; and ``torch.profiler`` over one iteration
+        of the shape cut to ``n_steps = profile_steps`` (rollout and SGD
+        steps in the same ratio; its kernels scaled to the whole shape)."""
+        from gym2048_tpu_torch.train import ppo
+
+        cfg = ppo.PPOConfig(**config, compute_dtype=dtype)
+        tr = ppo.PPO(cfg, device=self.dev)
+        state = tr.init_state()
+        if timed > 1:
+            state, _ = tr.train_iteration(state)  # warm-up
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            state, metrics = tr.train_iteration(state)
+            check(math.isfinite(float(metrics["loss"])), f"{label}: loss not finite")
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rates = sorted(cfg.rollout_size / x for x in secs)
+        timer = SyncTimer(tr, ("_collect_rollout", "_update_epochs"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_iteration(state)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        rollout = sum(timer.seconds["_collect_rollout"]) / total
+        update = sum(timer.seconds["_update_epochs"]) / total
+        flops = ppo_iteration_flops(cfg)
+        achieved = flops / sorted(secs)[len(secs) // 2]
+        peaks = (("bf16",) if dtype == torch.bfloat16 else ("f32", "tf32"))
+        shares = ", ".join(f"{achieved / PEAK_FLOPS[k]:.4f} of the {k} peak" for k in peaks)
+        prof_tr = ppo.PPO(ppo.PPOConfig(**{**config, "n_steps": profile_steps},
+                                        compute_dtype=dtype), device=self.dev)
+        prof_state, scale = prof_tr.init_state(), cfg.n_steps // profile_steps
+        wall, busy, kernels, top = profile_device(lambda: prof_tr.train_iteration(prof_state))
+        prof = ("torch.profiler recorded no device time: busy share not measured" if not busy
+                else f"under torch.profiler at n_steps {profile_steps}: busy {busy / wall:.4f} "
+                     f"of {wall / 1e6:.3f} s, {kernels} kernels an iteration ({kernels * scale} "
+                     f"at n_steps {cfg.n_steps}); top: "
+                     + "; ".join(f"{k} {v:.3f}" for k, v in top))
+        return (f"{label}: {cfg.rollout_size / sorted(secs)[len(secs) // 2]:.1f} steps/s "
+                f"(median of {timed}; {rates[0]:.1f}-{rates[-1]:.1f}), peak "
+                f"{peak:.3f} GiB allocated ({peak - held:.3f} above the {held:.3f} held "
+                f"before); one more iteration, its two parts timed to a sync: rollout "
+                f"{rollout:.3f} and update {update:.3f} of {total:.3f} s; {flops / 1e12:.2f} TFLOP an iteration, {achieved / 1e12:.1f} TFLOP/s "
+                f"({shares}); {prof}")
+
+    # 19b
+    def ppo_throughput(self) -> str:
+        """``bench.py::bench_ppo``'s shapes: production in bf16 and f32, the
+        reference (host-bound by design) for one iteration."""
+        production, reference = PPO_PROFILE_STEPS
+        parts = [self.ppo_rate("production bf16", PPO_PRODUCTION, torch.bfloat16,
+                               PPO_TIMED_ITERATIONS, production),
+                 self.ppo_rate("production f32", PPO_PRODUCTION, torch.float32,
+                               PPO_TIMED_ITERATIONS, production),
+                 self.ppo_rate("reference f32", PPO_REFERENCE, torch.float32, 1, reference)]
+        return " | ".join(parts) + f"; on {self.smi}"
+
+    # 19c
+    def ppo_learning(self) -> str:
+        """The config of ``docs/curves/ppo_tpu_config.jsonl`` for 12
+        iterations (6,291,456 steps) as path "ppo": the first iteration in
+        the untrained policy's band, the last two at least 150 and twice
+        the first two."""
+        from gym2048_tpu_torch.train import ppo
+
+        cfg = ppo.PPOConfig(**PPO_LEARN)
+        tr = ppo.PPO(cfg, device=self.dev)
+        state = tr.init_state()
+        rows = []
+
+        def learn():
+            nonlocal state
+            for _ in range(PPO_LEARN_ITERATIONS):
+                state, metrics = tr.train_iteration(state)
+                rows.append({k: float(v) for k, v in metrics.items()})
+
+        t0 = time.perf_counter()
+        self.drive("ppo", learn)
+        secs = time.perf_counter() - t0
+        rets = [r["ep_return_mean"] for r in rows]
+        first2, last2 = (rets[0] + rets[1]) / 2, (rets[-2] + rets[-1]) / 2
+        check(PPO_FIRST_BAND[0] <= rets[0] <= PPO_FIRST_BAND[1],
+              f"first ep_return_mean {rets[0]} outside {PPO_FIRST_BAND}")
+        check(last2 >= PPO_LAST_MIN and last2 >= PPO_GAIN_MIN * first2,
+              f"ep_return_mean {rets}: the last two do not reach {PPO_LAST_MIN} and "
+              f"{PPO_GAIN_MIN}x the first two")
+        self.ppo_model = state.model
+        steps = PPO_LEARN_ITERATIONS * cfg.rollout_size
+        return (f"{steps} steps in {secs:.2f} s ({steps / secs:.1f} steps/s); ep_return_mean "
+                + ", ".join(f"{r:.1f}" for r in rets)
+                + f" (JAX: 51.7, 58.3 ... 260.3, 277.2); first two {first2:.1f}, last two "
+                f"{last2:.1f}; value_loss at the first iteration {rows[0]['value_loss']:.1f} "
+                f"(JAX 90.3), highest_tile_mean at the last {rows[-1]['highest_tile_mean']:.1f}"
+                f"; launches {self.path_launches['ppo']}")
+
+    # 19d
+    def bc_epoch(self) -> str:
+        """``build_bc_trainer_for_ppo()`` for one epoch over 262,144 boards
+        labelled by the synthetic rule, then ``evaluate``."""
+        from gym2048_tpu_torch.train import bc
+
+        trainer = bc.build_bc_trainer_for_ppo(device=self.dev)
+        rng = np.random.default_rng(SEED)
+        boards = rng.integers(0, 8, size=(BC_SAMPLES, 4, 4)).astype(np.int8)
+        labels = boards.reshape(BC_SAMPLES, 16).argmax(axis=1) % 4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, history = trainer.fit(boards, labels, epochs=1, verbose=False)
+        secs = time.perf_counter() - t0
+        ev = trainer.evaluate(boards, labels)
+        check(ev["accuracy"] > BC_ACCURACY_MIN,
+              f"BC accuracy {ev['accuracy']} not above {BC_ACCURACY_MIN}")
+        return (f"one epoch of {BC_SAMPLES} boards, batch {trainer.cfg.batch_size}, lr "
+                f"{trainer.cfg.lr}: loss {history[0]['loss']:.4f}, accuracy "
+                f"{history[0]['accuracy']:.4f}, {BC_SAMPLES / secs:.1f} samples/s "
+                f"({secs:.2f} s); evaluate: loss {ev['loss']:.4f}, accuracy "
+                f"{ev['accuracy']:.4f} (chance 0.25, limit {BC_ACCURACY_MIN})")
+
+    # 19e
+    def ppo_evaluation(self) -> str:
+        """``evaluate_batched`` of 19c's model over 512 episodes with and
+        without the mask, and the critic as the leaf of a depth-1 search
+        on 64 boards, its Q-values against the CPU's with TF32 off."""
+        import copy
+
+        from gym2048_tpu_torch.agents import expectimax as ex
+        from gym2048_tpu_torch.train import eval as ev
+
+        model = self.ppo_model.eval()
+        parts = []
+        for mask in (False, True):
+            gen = torch.Generator(device=self.dev).manual_seed(SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ev.evaluate_batched(model, EVAL_EPISODES, 0.0, gen, mask_illegal=mask)
+            secs = time.perf_counter() - t0
+            eps = res["Episodes"]
+            moves = [e["moves"] for e in eps]
+            highest = [e["highest"] for e in eps]
+            illegal = sum(e["illegal_moves"] for e in eps)
+            check(len(eps) == EVAL_EPISODES and max(moves) <= ev.MOVE_CAP + 1
+                  and min(moves) >= 1, f"moves outside [1, {ev.MOVE_CAP + 1}]")
+            check(all(h >= 2 and h & (h - 1) == 0 for h in highest), "highest not a power of 2")
+            check(not mask or illegal == 0, f"{illegal} illegal moves under the mask")
+            parts.append(f"{'masked' if mask else 'unmasked'}: average {res['Average score']:.1f}, "
+                         f"max {res['Max score']:.0f}, highest tile {res['Highest tile']}, "
+                         f"{sum(moves)} moves (longest {max(moves)}), {illegal} illegal, "
+                         f"{EVAL_EPISODES / secs:.1f} episodes/s")
+        rng = np.random.default_rng(SEED)
+        boards = torch.as_tensor(random_boards(rng, LEAF_BOARDS_CNN, 11, 0.4))
+        cpu_model = copy.deepcopy(model).cpu()
+        with tf32(False):
+            q_card = ex.action_values(boards.to(self.dev), 1, ex.value_leaf_from_critic(model),
+                                      1.0, ex.bellman_dead_value)
+        q_cpu = ex.action_values(boards, 1, ex.value_leaf_from_critic(cpu_model), 1.0,
+                                 ex.bellman_dead_value)
+        legal = q_cpu > -1e8
+        check(torch.equal(q_card.cpu() > -1e8, legal), "legal actions differ")
+        err = rel_err((q_card.cpu()[legal],), (q_cpu[legal],))
+        check(err <= 1e-5, f"critic-leaf Q-values: card vs CPU relative error {err}")
+        policy = ex.make_policy(1, ex.value_leaf_from_critic(model), gain_weight=1.0,
+                                dead_value=ex.bellman_dead_value)
+        b = boards.to(self.dev)
+        actions = policy(b).cpu().long()
+        live = legal.any(-1)
+        check(bool(legal[live].gather(1, actions[live, None]).all()), "an illegal policy action")
+        ms = median_of(lambda: event_ms(lambda: policy(b), 10), 3)
+        return (" | ".join(parts) + f"; critic leaf, depth 1 on {LEAF_BOARDS_CNN} boards "
+                f"({LEAF_BOARDS_CNN * 128} leaves a call): Q-values within {err:.3g} of the "
+                f"CPU's (TF32 off, limit 1e-5), {ms:.3f} ms a call, "
+                f"{LEAF_BOARDS_CNN / ms * 1e3:.1f} moves/s")
+
     # 18
     def ops_on_card(self) -> str:
         """Every ``ops`` function on CUDA tensors against its CPU result:
         exact for the encoders and the augmentation, within 1e-6 of the
         output's largest magnitude for the returns."""
+        from gym2048_tpu_torch.models import resnet
         from gym2048_tpu_torch.ops import augment, obs, returns
 
         rng = np.random.default_rng(SEED)
@@ -1628,6 +1983,7 @@ class Smoke:
             "rotate_boards": lambda x: augment.rotate_boards(x[0], 3),
             "rotate_actions": lambda x: augment.rotate_actions(x[2], 3),
             "augment8": lambda x: augment.augment8(x[0], x[2], x[1]),
+            "boards_to_model_input": lambda x: resnet.boards_to_model_input(x[0]),
         }
         close = {
             "log2_rewards": lambda x: (returns.log2_rewards(x[3]),),
@@ -1704,6 +2060,11 @@ def main() -> int:
     smoke.run("17e", "td small learning", smoke.td_small_learning)
     smoke.run("17f", "td small play", smoke.td_small_play)
     smoke.run("18", "ops", smoke.ops_on_card)
+    smoke.run("19a", "cnn forward", smoke.cnn_forward)
+    smoke.run("19b", "ppo throughput", smoke.ppo_throughput)
+    smoke.run("19c", "ppo learning", smoke.ppo_learning)
+    smoke.run("19d", "bc", smoke.bc_epoch)
+    smoke.run("19e", "ppo evaluation", smoke.ppo_evaluation)
     smoke.run("16", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -14,10 +14,16 @@ Layout (mirrors ``gym2048_tpu``):
   counterpart of ``core/pallas_step.py``) and their plain versions;
 * ``csrc/fused_step.cu`` — the CUDA source of those kernels;
 * ``models/`` — the n-tuple networks (the small 17 x 4-cell net and the big
-  layouts) and their table lookup kernel (``csrc/table_gather.cu``);
-* ``agents/expectimax.py``, ``train/td.py`` — the agents and the TD learner;
+  layouts) and their table lookup kernel (``csrc/table_gather.cu``), and the
+  residual CNNs (``resnet.py``: the BC policy and the PPO actor-critic);
+* ``agents/expectimax.py`` — the expectimax agents, with an n-tuple network,
+  the heuristic or a PPO critic as the leaf;
+* ``train/`` — the TD learner (``td.py``), PPO (``ppo.py``), behavioural
+  cloning (``bc.py``) and the batched evaluator (``eval.py``);
 * ``ops/`` — observation encoders, symmetry augmentation, reward math;
-* ``interop.py`` — state carried over from the JAX package as numpy.
+* ``interop.py`` — state and CNN weights carried between the JAX package and
+  the port as numpy;
+* ``entry.py`` — the flagship actor-critic's forward as one callable.
 """
 
 __version__ = "0.1.0"

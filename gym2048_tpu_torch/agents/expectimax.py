@@ -27,8 +27,11 @@ slices: the same values, with a bounded batch. :func:`play_policy` plays
 games on the port's batched env with a ``torch.Generator``; entry points run
 on the card (``device="cuda"``) unless the caller asks for the CPU.
 
-``value_leaf_from_critic`` (the CNN critic as a leaf) waits for the port
-of the CNN.
+:func:`value_leaf_from_critic` makes a PPO critic the leaf of the
+heuristic search: all N leaf boards go through one eval-mode forward of the
+:class:`~gym2048_tpu_torch.models.resnet.ActorCritic`, where the JAX
+module applies the model to one board at a time under ``vmap``; with
+BatchNorm in eval mode the two are the same function.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from gym2048_tpu_torch.core import rules
 from gym2048_tpu_torch.env import batched
 from gym2048_tpu_torch.env.batched import EnvConfig
+from gym2048_tpu_torch.models.resnet import boards_to_model_input
 
 # Heuristic weights (exponent units), as in the JAX module.
 W_EMPTY = 2.7
@@ -135,6 +139,23 @@ def state_value(boards: torch.Tensor, depth: int,
     q = action_values(boards, depth, leaf_value, gain_weight, dead_value)
     dead = (q <= _NEG / 2).all(-1)
     return torch.where(dead, dead_value(boards), q.amax(-1))
+
+
+def value_leaf_from_critic(model) -> ValueFn:
+    """A trained :class:`~gym2048_tpu_torch.models.resnet.ActorCritic`'s
+    value head as a ``leaf_value``: ``(N, 4, 4)`` boards -> ``(N,)``
+    float32 in one eval-mode forward, without gradients. Search on top of
+    learning: expectimax backs up the critic's state value instead of the
+    hand-tuned heuristic. Pair it with ``gain_weight=1.0`` and
+    :func:`bellman_dead_value`."""
+    def leaf(boards: torch.Tensor) -> torch.Tensor:
+        if model.training:
+            raise ValueError("value_leaf_from_critic reads the critic in eval mode")
+        with torch.no_grad():
+            _, value = model(boards_to_model_input(boards))
+        return value
+
+    return leaf
 
 
 def make_policy(depth: int, leaf_value: ValueFn = heuristic_value,

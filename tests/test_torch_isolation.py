@@ -31,7 +31,10 @@ def test_port_modules_are_found():
             "gym2048_tpu_torch.utils.checkpoint", "gym2048_tpu_torch.train",
             "gym2048_tpu_torch.train.td", "gym2048_tpu_torch.ops",
             "gym2048_tpu_torch.ops.obs", "gym2048_tpu_torch.ops.augment",
-            "gym2048_tpu_torch.ops.returns"} <= set(PORT_MODULES)
+            "gym2048_tpu_torch.ops.returns", "gym2048_tpu_torch.models.resnet",
+            "gym2048_tpu_torch.entry", "gym2048_tpu_torch.train.ppo",
+            "gym2048_tpu_torch.train.bc", "gym2048_tpu_torch.train.eval",
+            "gym2048_tpu_torch.models"} <= set(PORT_MODULES)
 
 
 def test_imports_without_jax_or_the_jax_package():
