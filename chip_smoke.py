@@ -42,8 +42,19 @@ counts:
   played greedily and by the expectimax CLI's small-table policy at depth
   2, whose first 128 moves are replayed with the plain lookup.
 
-Last, the ``ops`` transforms (observation encoders, augmentation, returns)
-on the card must equal their CPU results.
+Then the ``ops`` transforms (observation encoders, augmentation, returns)
+on the card must equal their CPU results, and the CNN path (phases 19a-19e:
+the forward, PPO, BC, the evaluators) runs on the card.
+
+Last, the shell (phase 20, path "shell", none of our kernels): the native
+engine built with ``g++`` and held against ``rules_np`` and ``core.rules``;
+then the reference's user flow through the port's CLIs in ``build/shell/``:
+``selfplay`` (every row checked, the CSV byte-identical from the native and
+numpy writers) -> ``pretrain_bc`` (ActorCritic(64, 4), the flax-layout
+pickle) -> ``selfplay --policy model`` -> ``ppo --pretrained`` at the
+production shape with checkpoints, the restored state equal leaf for leaf,
+and ``--resume`` -> ``evaluate`` (the reference protocol on the card and on
+the CPU, and ``--fast``) -> ``train`` (Game2048Model(64, 8)).
 
 Before the paths, the single-step kernels, and the rollout for 32 steps,
 are held bit for bit against their plain versions on 65,536 boards of
@@ -71,6 +82,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -138,6 +150,7 @@ PATHS = {
     "td": ("gather_values",),
     "td small": ("gather_values",),
     "ppo": (),  # the CNN, PPO's env and the optimiser: plain PyTorch, no kernel of ours
+    "shell": (),  # the CLIs (phase 20): the same device code as "ppo", and the host
 }
 
 # The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
@@ -239,6 +252,22 @@ PPO_LAST_MIN, PPO_GAIN_MIN = 150.0, 2.0
 # rule of tests/test_train.py::synthetic_dataset (exponents 0-7, argmax % 4)
 BC_SAMPLES, BC_ACCURACY_MIN = 262_144, 0.6
 EVAL_EPISODES, LEAF_BOARDS_CNN = 512, 64
+# The shell path (phases 20a-20g): the reference's user flow through the port's
+# CLIs, selfplay -> CSV -> pretrain_bc -> ppo --pretrained with checkpoints and
+# --resume -> evaluate, and train, run in SHELL_DIR (the CLIs write into the
+# working directory). ActorCritic(64, 4) (pretrain_bc's and ppo's defaults) and
+# Game2048Model(64, 8) (train's).
+SHELL_DIR = "build/shell"
+ENGINE_BOARDS = 1 << 20
+RULES_NP_SAMPLE = 4096     # boards also run one at a time through rules_np.move
+SELFPLAY_N, SELFPLAY_BATCH = 65_536, 4096
+STATS_BATCH = 256          # random play long enough to finish games: 256 steps an env
+SHELL_PPO = ["--n-envs", "4096", "--n-steps", "128", "--batch-size", "16384", "--bf16",
+             "--mask-illegal", "--save-interval", "1", "--video-freq", "0",
+             "--log-interval", "1", "--run-name", "shell", "--seed", str(SEED)]
+SHELL_PPO_ROLLOUT = 4096 * 128
+HOST_EVAL_EPISODES, HOST_EVAL_EPSILON, FAST_EVAL_EPISODES = 10, 0.1, 512
+FLIP_MARGIN_MAX = 1e-4     # a card/CPU argmax flip must be roundoff: a top-2 gap below this
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
@@ -541,6 +570,38 @@ def state_diffs(a: dict, b: dict) -> list[str]:
     return bad
 
 
+def checkpoint_diffs(a, b) -> list[str]:
+    """The leaves of two training states, as the Checkpointer saves them
+    (a state, or a host tree it restored), that are not equal bit for bit."""
+    from gym2048_tpu_torch.utils.checkpoint import _state_to_host
+
+    bad = []
+
+    def walk(x, y, where):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype and x.shape == y.shape
+                    and torch.equal(x.reshape(-1).contiguous().view(torch.uint8),
+                                    y.reshape(-1).contiguous().view(torch.uint8))):
+                bad.append(where)
+        elif isinstance(x, dict):
+            if not isinstance(y, dict) or set(x) != set(y):
+                bad.append(where)
+            else:
+                for k in x:
+                    walk(x[k], y[k], f"{where}.{k}")
+        elif isinstance(x, (list, tuple)):
+            if not isinstance(y, (list, tuple)) or len(x) != len(y):
+                bad.append(where)
+            else:
+                for i, (u, v) in enumerate(zip(x, y)):
+                    walk(u, v, f"{where}[{i}]")
+        elif x != y:
+            bad.append(where)
+
+    walk(_state_to_host(a), _state_to_host(b), "state")
+    return bad
+
+
 def short_kernel_name(key: str) -> str:
     """A profiler kernel name without its return type and namespaces."""
     for noise in ("void ", "at::native::", "(anonymous namespace)::", "at::", "c10::"):
@@ -615,6 +676,74 @@ def rel_err(got, want) -> float:
         diff = (g.detach().cpu().double() - w).abs().max().item()
         worst = max(worst, diff / max(w.abs().max().item(), 1e-30))
     return worst
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names):
+    """:class:`SyncTimer` over methods of a class (every instance's calls),
+    the methods restored on exit."""
+    saved = {name: cls.__dict__[name] for name in names}
+    try:
+        yield SyncTimer(cls, names)
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+@contextlib.contextmanager
+def quiet(log_path: str):
+    """The standard output of a CLI appended to ``log_path``, not printed."""
+    with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+        yield
+
+
+def value_boards(boards_exp: np.ndarray) -> np.ndarray:
+    e = boards_exp.astype(np.int64)
+    return np.where(e > 0, np.left_shift(1, e), 0)
+
+
+def legal_chance(boards: np.ndarray) -> tuple[float, float]:
+    """The best accuracy and cross-entropy of a predictor of a uniformly
+    random legal move on value ``boards``: the means of 1 / (legal moves)
+    and of ln(legal moves)."""
+    from gym2048_tpu_torch.core import rules_np
+
+    n_legal = sum(rules_np.move_batch(boards, np.full(len(boards), d))[2].astype(int)
+                  for d in range(4))
+    return float(np.mean(1.0 / n_legal)), float(np.mean(np.log(n_legal)))
+
+
+def check_transitions(td, steps: int) -> tuple[int, int]:
+    """The rows of a self-play ``TrainingData`` in per-env order, ``steps``
+    rows an env, no row dropped: each row a legal move whose next board is
+    ``rules_np``'s result plus exactly one 2 or 4 on an empty cell, its
+    reward the merge score; within an env each row's board is the previous
+    next board, or after a done a fresh board of two tiles of 2 or 4.
+    Returns ``(rows, done rows)``."""
+    from gym2048_tpu_torch.core import rules_np
+
+    x, nx = td.get_x(), td.get_next_x()
+    a, r = td.get_y_digit().reshape(-1), td.get_reward().reshape(-1)
+    d = td.get_done().reshape(-1)
+    n = len(x)
+    check(n % steps == 0, f"{n} rows, not a multiple of {steps} steps")
+    new, score, changed = rules_np.move_batch(x, a)
+    check(bool(changed.all()), f"{int((~changed).sum())} illegal rows")
+    check(np.array_equal(r, score.astype(np.float64)), "a reward is not the merge score")
+    spawn = nx - new
+    cells = (spawn != 0).sum(axis=(1, 2))
+    check(bool((cells == 1).all()), "a next board is not the move plus one tile")
+    check(bool(np.isin(spawn.sum(axis=(1, 2)), (2, 4)).all()), "a spawned tile is not 2 or 4")
+    check(bool((new[spawn != 0] == 0).all()), "a tile spawned on an occupied cell")
+    follow = np.ones(n, bool)
+    follow[steps - 1::steps] = False  # the last row of each env has no successor here
+    idx = np.nonzero(follow)[0]
+    cont = idx[~d[idx]]
+    check(np.array_equal(x[cont + 1], nx[cont]), "an episode is not contiguous within its env")
+    fresh = x[idx[d[idx]] + 1]
+    check(bool(((fresh > 0).sum(axis=(1, 2)) == 2).all()
+               and np.isin(fresh[fresh > 0], (2, 4)).all()), "a board after a done is not fresh")
+    return n, int(d.sum())
 
 
 class SyncTimer:
@@ -702,12 +831,15 @@ class Smoke:
 
     def drive(self, path: str, fn):
         """Run ``fn``, one path, between zeroed launch counts; record the
-        counts it made and check that it launched each of its kernels."""
+        counts it made (added to those of earlier drives of the path) and
+        check that it launched each of its kernels."""
         self.zero_launches()
         out = fn()
         torch.cuda.synchronize()
         counts = self.launches()
         self.zero_launches()
+        for name, n in self.path_launches.get(path, {}).items():
+            counts[name] += n
         self.path_launches[path] = counts
         for name in PATHS[path]:
             check(counts[name] > 0, f"{name} was not launched on the {path} path")
@@ -1958,6 +2090,377 @@ class Smoke:
                 f"CPU's (TF32 off, limit 1e-5), {ms:.3f} ms a call, "
                 f"{LEAF_BOARDS_CNN / ms * 1e3:.1f} moves/s")
 
+    # 20a
+    def shell_engine(self) -> str:
+        """Which optional packages the card's host has (information, not a
+        check), the native engine built with ``g++`` and
+        ``engine_move_batch`` held bit for bit against ``rules_np`` (and
+        ``rules_np.move`` one board at a time on a sample) and against
+        ``core.rules`` on the card, on random and adversarial boards."""
+        import importlib.util
+        import shutil
+
+        from gym2048_tpu_torch import native
+        from gym2048_tpu_torch.core import rules, rules_np
+
+        have = {m: importlib.util.find_spec(m) is not None
+                for m in ("gymnasium", "PIL", "tensorboard")}
+        gxx = shutil.which("g++")
+        version = (subprocess.run([gxx, "--version"], capture_output=True, text=True)
+                   .stdout.splitlines()[0] if gxx else "no g++")
+        print(f"optional packages: " + ", ".join(f"{m} {'yes' if v else 'no'}"
+                                                for m, v in have.items())
+              + f"; {version}", flush=True)
+        t0 = time.perf_counter()
+        check(native.available(), f"the native engine did not build: {native._build_error}")
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED)
+        half = ENGINE_BOARDS // 2
+        boards = np.concatenate([random_boards(rng, half, 15, 0.3),
+                                 adversarial_boards(rng, ENGINE_BOARDS - half)[0]])
+        actions = rng.integers(0, 4, ENGINE_BOARDS).astype(np.int32)
+        t0 = time.perf_counter()
+        moved, scores, legal = native.move_batch(boards, actions)
+        engine_s = time.perf_counter() - t0
+        values = value_boards(boards)
+        t0 = time.perf_counter()
+        new, np_scores, changed = rules_np.move_batch(values, actions)
+        np_s = time.perf_counter() - t0
+        check(np.array_equal(value_boards(moved), new) and np.array_equal(scores, np_scores)
+              and np.array_equal(legal, changed), "engine_move_batch differs from rules_np")
+        for i in rng.choice(ENGINE_BOARDS, RULES_NP_SAMPLE, replace=False):
+            b, s, c = rules_np.move(values[i], int(actions[i]))
+            check(np.array_equal(b, new[i]) and s == np_scores[i] and c == changed[i],
+                  f"rules_np.move differs from move_batch on board {i}")
+        b_t = torch.as_tensor(boards).to(self.dev)
+        a_t = torch.as_tensor(actions).to(self.dev)
+        t_moved, t_scores, t_legal = rules.apply_action(b_t, a_t)
+        check(np.array_equal(t_moved.cpu().numpy(), moved)
+              and np.array_equal(t_scores.cpu().numpy().astype(np.int64), scores.astype(np.int64))
+              and np.array_equal(t_legal.cpu().numpy(), legal),
+              "engine_move_batch differs from core.rules on the card")
+        lib = native.LIBRARY
+        return (f"{lib.relative_to(os.getcwd()) if lib.is_relative_to(os.getcwd()) else lib} "
+                f"(g++ {' '.join(native.GXX_FLAGS)}) ready in {build_s:.2f} s; "
+                f"engine_move_batch on {ENGINE_BOARDS} boards ({half} random exponents "
+                f"0-15, {ENGINE_BOARDS - half} of the eight families) equal to "
+                f"rules_np.move_batch, to rules_np.move on {RULES_NP_SAMPLE} of them, and "
+                f"to core.rules.apply_action on the card, bit for bit ({int(legal.sum())} "
+                f"legal); engine {ENGINE_BOARDS / engine_s / 1e6:.2f}M boards/s, rules_np "
+                f"{ENGINE_BOARDS / np_s / 1e6:.2f}M boards/s on the host")
+
+    def shell_cli(self, main, argv: list[str]):
+        """One CLI's ``main(argv)`` as path "shell", its output appended to
+        ``cli.log``; returns ``(main's result, seconds)``."""
+        def run():
+            with quiet("cli.log"):
+                t0 = time.perf_counter()
+                out = main(argv)
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+        return self.drive("shell", run)
+
+    # 20b
+    def shell_selfplay(self) -> str:
+        """``tools.selfplay.main`` at 65,536 transitions, batch 4096, the
+        random-legal policy: every row checked on the host
+        (:func:`check_transitions`); the CSV read and written by the native
+        and the numpy paths, byte-identical and equal; random play's game
+        score from a longer rollout (batch 256, 256 steps an env)."""
+        import shutil
+
+        from gym2048_tpu_torch import native
+        from gym2048_tpu_torch.data import TrainingData
+        from gym2048_tpu_torch.tools import selfplay
+
+        self.repo = os.getcwd()
+        shutil.rmtree(SHELL_DIR, ignore_errors=True)
+        os.makedirs(SHELL_DIR)
+        os.chdir(SHELL_DIR)
+        _, secs = self.shell_cli(selfplay.main, ["-o", "selfplay.csv", "-n", str(SELFPLAY_N),
+                                                 "--batch", str(SELFPLAY_BATCH),
+                                                 "--seed", str(SEED)])
+        size = os.path.getsize("selfplay.csv")
+        t0 = time.perf_counter()
+        td = TrainingData()
+        td.import_csv("selfplay.csv")
+        read_native = time.perf_counter() - t0
+        with native.unavailable():
+            t0 = time.perf_counter()
+            td_np = TrainingData()
+            td_np.import_csv("selfplay.csv")
+            read_numpy = time.perf_counter() - t0
+        for get in ("get_x", "get_y_digit", "get_reward", "get_next_x", "get_done"):
+            check(np.array_equal(getattr(td, get)(), getattr(td_np, get)()),
+                  f"native and numpy reads differ in {get}")
+        t0 = time.perf_counter()
+        td.export_csv("native.csv")
+        write_native = time.perf_counter() - t0
+        with native.unavailable():
+            t0 = time.perf_counter()
+            td.export_csv("numpy.csv")
+            write_numpy = time.perf_counter() - t0
+        raw = open("selfplay.csv", "rb").read()
+        check(open("native.csv", "rb").read() == raw and open("numpy.csv", "rb").read() == raw,
+              "the native and numpy writers' CSV files differ")
+        rows, dones = check_transitions(td, SELFPLAY_N // SELFPLAY_BATCH)
+        check(rows == SELFPLAY_N, f"{rows} rows, not {SELFPLAY_N}")
+        stats = self.drive("shell", lambda: selfplay.generate(
+            SELFPLAY_N, batch=STATS_BATCH, seed=SEED, device=self.dev))
+        steps = SELFPLAY_N // STATS_BATCH
+        check_transitions(stats, steps)
+        r = stats.get_reward().reshape(-1, steps)
+        d = stats.get_done().reshape(-1, steps)
+        games = []
+        for env in range(STATS_BATCH):  # complete games: from a reset to a done
+            ends = np.nonzero(d[env])[0]
+            games += [r[env, a + 1:b + 1].sum() for a, b in zip(ends[:-1], ends[1:])]
+            if len(ends):
+                games.append(r[env, :ends[0] + 1].sum())
+        mean = float(np.mean(games))
+        check(600 < mean < 1600, f"random play's average game score {mean}")
+        mb = size / 1e6
+        return (f"{SELFPLAY_N} transitions (batch {SELFPLAY_BATCH}, {dones} dones) in "
+                f"{secs:.3f} s through the CLI ({SELFPLAY_N / secs:.1f} transitions/s, the "
+                f"CSV write included); every row legal, its reward the merge score, its next "
+                f"board the move plus one 2 or 4, episodes contiguous; CSV {mb:.3f} MB, "
+                f"native and numpy writers byte-identical: write {mb / write_native:.1f} / "
+                f"{mb / write_numpy:.1f} MB/s, read {mb / read_native:.1f} / "
+                f"{mb / read_numpy:.1f} MB/s (native / numpy); random play at batch "
+                f"{STATS_BATCH}: {len(games)} complete games, average score {mean:.1f} "
+                f"(random 2048: ~1,000)")
+
+    # 20c
+    def shell_bc(self) -> str:
+        """``tools.pretrain_bc.main`` on 20b's CSV, 8x augmented, one epoch
+        of ActorCritic(64, 4); the pickle in the flax layout that the JAX
+        package's ``load_model`` and ``ActorCritic.apply`` read."""
+        from gym2048_tpu_torch.data import TrainingData
+        from gym2048_tpu_torch.tools import pretrain_bc
+        from gym2048_tpu_torch.train import bc
+        from gym2048_tpu_torch.utils.checkpoint import load_model
+
+        with timed_methods(bc.BCTrainer, ("fit",)) as timer:
+            _, secs = self.shell_cli(pretrain_bc.main, ["selfplay.csv", "--epochs", "1",
+                                                        "--output", "bc",
+                                                        "--seed", str(SEED)])
+        fit_s = timer.seconds["fit"][0]
+        variables, meta = load_model("bc.pkl")
+        check(meta == {"filters": CNN_FILTERS, "residual_blocks": CNN_BLOCKS,
+                       "model": "ActorCritic"}, f"bc.pkl meta {meta}")
+        params = variables["params"]
+        check(set(params) == {"_Trunk_0", "policy_head", "value_head"}
+              and np.shape(params["_Trunk_0"]["Conv_0"]["kernel"]) == (3, 3, 16, CNN_FILTERS)
+              and np.shape(params["policy_head"]["kernel"]) == (16 * CNN_FILTERS, 4)
+              and set(variables["batch_stats"]["_Trunk_0"]) == set(
+                  k for k in params["_Trunk_0"] if not k.startswith("Conv")),
+              "bc.pkl is not in the flax layout")
+        acc = self.shell_log_value(r"Epoch 1/1 — loss: ([\d.]+) — accuracy: ([\d.]+)", 2)
+        samples = 8 * SELFPLAY_N
+        td = TrainingData()
+        td.import_csv("selfplay.csv")
+        return (f"ActorCritic({CNN_FILTERS}, {CNN_BLOCKS}), one epoch over {samples} samples "
+                f"(8x augmented), batch 256: accuracy {acc:.4f} (chance 0.25; a uniform legal "
+                f"guess {legal_chance(td.get_x())[0]:.4f}: the labels are uniform legal moves, "
+                f"so only legality is learnable), fit {fit_s:.2f} s "
+                f"({samples / fit_s:.1f} samples/s), the CLI {secs:.2f} s; bc.pkl in the "
+                f"flax layout")
+
+    def shell_log_value(self, pattern: str, group: int = 1) -> float:
+        """A number from the CLIs' ``cli.log``: ``group`` of the last line
+        matching ``pattern``."""
+        found = re.findall(pattern, open("cli.log").read())
+        check(found, f"cli.log has no line matching {pattern!r}")
+        hit = found[-1]
+        return float(hit[group - 1] if isinstance(hit, tuple) else hit)
+
+    # 20d
+    def shell_selfplay_model(self) -> str:
+        """``tools.selfplay.main --policy model`` with 20c's model, epsilon
+        0.1, 65,536 transitions at batch 4096: its kept rows checked as in
+        20b (illegal moves are dropped, so rows are not counted per env)."""
+        from gym2048_tpu_torch.core import rules_np
+        from gym2048_tpu_torch.data import TrainingData
+        from gym2048_tpu_torch.tools import selfplay
+
+        _, secs = self.shell_cli(selfplay.main, [
+            "-o", "selfplay_bc.csv", "-n", str(SELFPLAY_N), "--batch", str(SELFPLAY_BATCH),
+            "--policy", "model", "--model", "bc.pkl", "--epsilon", "0.1",
+            "--seed", str(SEED)])
+        td = TrainingData()
+        td.import_csv("selfplay_bc.csv")
+        x, a = td.get_x(), td.get_y_digit().reshape(-1)
+        new, score, changed = rules_np.move_batch(x, a)
+        check(bool(changed.all()), "an illegal row was kept")
+        check(np.array_equal(td.get_reward().reshape(-1), score.astype(np.float64)),
+              "a reward is not the merge score")
+        check(bool(((td.get_next_x() - new) != 0).sum(axis=(1, 2)).max() == 1),
+              "a next board is not the move plus one tile")
+        kept = td.size()
+        return (f"{SELFPLAY_N} transitions (batch {SELFPLAY_BATCH}, epsilon 0.1) in {secs:.3f} s "
+                f"({SELFPLAY_N / secs:.1f} transitions/s through the CLI); {kept} legal rows "
+                f"kept, {SELFPLAY_N - kept} illegal moves dropped, {int(td.get_done().sum())} "
+                f"dones")
+
+    # 20e
+    def shell_ppo(self) -> str:
+        """``tools.ppo.main --pretrained bc.pkl`` at the production shape
+        (4096 envs x 128 steps, batch 16,384, bf16, the mask) for 2
+        iterations with a checkpoint each; the last checkpoint restored
+        into a fresh state equal to the run's state leaf for leaf
+        (generator included); ``--resume`` to a third iteration."""
+        from gym2048_tpu_torch.tools import ppo as ppo_cli
+        from gym2048_tpu_torch.train import ppo
+        from gym2048_tpu_torch.utils import checkpoint
+
+        with timed_methods(ppo.PPO, ("train_iteration",)) as it_timer, \
+                timed_methods(checkpoint.Checkpointer, ("save",)) as save_timer:
+            state2, secs = self.shell_cli(ppo_cli.main, SHELL_PPO + [
+                "--total-timesteps", str(2 * SHELL_PPO_ROLLOUT), "--pretrained", "bc.pkl"])
+            check(state2.update_idx == 2, f"update_idx {state2.update_idx} after 2 iterations")
+            ckpt = checkpoint.Checkpointer("checkpoints")
+            check(ckpt.all_steps() == [1, 2], f"checkpoints {ckpt.all_steps()}")
+            cfg = ppo.PPOConfig(total_timesteps=2 * SHELL_PPO_ROLLOUT, n_envs=4096, n_steps=128,
+                                batch_size=16384, compute_dtype=torch.bfloat16,
+                                mask_illegal=True, seed=SEED)
+            fresh = ppo.PPO(cfg, device=self.dev).init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored = ckpt.restore(like=fresh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            diffs = checkpoint_diffs(state2, restored)
+            check(not diffs, f"the restored state differs from the saved one: {diffs}")
+            state3, secs3 = self.shell_cli(ppo_cli.main, SHELL_PPO + [
+                "--total-timesteps", str(3 * SHELL_PPO_ROLLOUT), "--resume"])
+        check(state3.update_idx == 3 and ckpt.all_steps() == [1, 2, 3],
+              f"--resume: update_idx {state3.update_idx}, checkpoints {ckpt.all_steps()}")
+        lines = open("logs/shell.jsonl").read().splitlines()
+        check(len(lines) == 3, f"logs/shell.jsonl has {len(lines)} lines, not 3")
+        ret = [json.loads(x)["rollout/ep_rew_mean"] for x in lines]
+        its = it_timer.seconds["train_iteration"]
+        size = sum(p.stat().st_size for p in (ckpt.root / "3").iterdir()) / 1e6
+        final = [f for f in os.listdir(".") if f.startswith("ppo_model_final_")]
+        check(final, "no final model")
+        self.final_model = max(final, key=os.path.getmtime)  # the resumed run's
+        return (f"2 iterations from bc.pkl in {secs:.2f} s, --resume to a third in "
+                f"{secs3:.2f} s; an iteration {', '.join(f'{x:.3f}' for x in its)} s "
+                f"({SHELL_PPO_ROLLOUT / sorted(its)[1]:.1f} steps/s, the median); the "
+                f"restored state equal to the run's leaf for leaf (weights, BatchNorm "
+                f"statistics, Adam, count, envs, generator, update_idx); checkpoint "
+                f"{size:.2f} MB: save {', '.join(f'{x:.3f}' for x in save_timer.seconds['save'])}"
+                f" s, restore {restore_s:.3f} s; ep_rew_mean (rolling) "
+                + ", ".join(f"{x:.1f}" for x in ret))
+
+    # 20f
+    def shell_evaluate(self) -> str:
+        """``tools.evaluate.main`` of 20e's final model, the reference
+        protocol (10 episodes, epsilon 0.1), on the card with TF32 off and
+        on the CPU: ``scores_<label>.csv`` identical, or the first argmax
+        flip reported with its margin (which must be roundoff); then
+        ``--fast --mask-illegal`` at 512 episodes."""
+        import csv as csvlib
+
+        from gym2048_tpu_torch.tools import evaluate
+
+        argv = [self.final_model, "--episodes", str(HOST_EVAL_EPISODES),
+                "--epsilon", str(HOST_EVAL_EPSILON)]
+        with tf32(False):
+            _, card_s = self.shell_cli(evaluate.main, argv + ["--label", "card"])
+        _, cpu_s = self.shell_cli(evaluate.main, argv + ["--label", "cpu", "--device", "cpu"])
+        card, cpu = open("scores_card.csv").read(), open("scores_cpu.csv").read()
+        rows = list(csvlib.DictReader(card.splitlines()))
+        moves = sum(int(r["moves"]) for r in rows)
+        if card == cpu:
+            agree = "scores_card.csv and scores_cpu.csv identical"
+        else:
+            episode, move, margin = self.first_flip(rows, list(csvlib.DictReader(
+                cpu.splitlines())))
+            check(margin < FLIP_MARGIN_MAX, f"episode {episode} move {move}: the card's and the "
+                  f"CPU's argmax differ by a margin of {margin}")
+            agree = (f"the scores differ from episode {episode}: its move {move} flips the "
+                     f"argmax on roundoff (top-2 margin {margin:.3g})")
+        _, fast_s = self.shell_cli(evaluate.main, [
+            self.final_model, "--episodes", str(FAST_EVAL_EPISODES), "--fast",
+            "--mask-illegal", "--label", "fast", "--seed", str(SEED)])
+        fast = list(csvlib.DictReader(open("scores_fast.csv").read().splitlines()))
+        check(len(fast) == FAST_EVAL_EPISODES and all(r["illegal_moves"] == "0" for r in fast),
+              "--fast --mask-illegal: an illegal move or a missing episode")
+        fast_avg = np.mean([float(r["total_reward"]) for r in fast])
+        card_avg = np.mean([float(r["total_reward"]) for r in rows])
+        return (f"host protocol, {HOST_EVAL_EPISODES} episodes, epsilon {HOST_EVAL_EPSILON}: "
+                f"average {card_avg:.1f}, {moves} moves; card (TF32 off) {card_s:.2f} s "
+                f"({1e3 * card_s / moves:.3f} ms a move), CPU {cpu_s:.2f} s "
+                f"({1e3 * cpu_s / moves:.3f} ms a move); {agree}; --fast --mask-illegal, "
+                f"{FAST_EVAL_EPISODES} episodes: average {fast_avg:.1f}, "
+                f"{FAST_EVAL_EPISODES / fast_s:.1f} episodes/s ({fast_s:.2f} s)")
+
+    def first_flip(self, card_rows, cpu_rows) -> tuple[int, int, float]:
+        """The first episode whose scores differ between the card and the
+        CPU, replayed under the protocol with both models: ``(episode, move,
+        the CPU's top-2 probability margin)`` at the first move whose greedy
+        choice differs."""
+        import random
+
+        from gym2048_tpu_torch import interop
+        from gym2048_tpu_torch.env import adapter
+        from gym2048_tpu_torch.train import eval as ev
+        from gym2048_tpu_torch.utils.checkpoint import load_model
+
+        episode = next(i for i, (a, b) in enumerate(zip(card_rows, cpu_rows)) if a != b)
+        variables, _ = load_model(self.final_model)
+        on_card = ev.make_predict_fn(interop.resnet_from_variables(variables, device=self.dev))
+        on_cpu = ev.make_predict_fn(interop.resnet_from_variables(variables, device="cpu"))
+        env = adapter.Game2048Env()
+        env.set_illegal_move_reward(-1.0)
+        random.seed(123 + episode)
+        obs, _ = env.reset(seed=456 + episode)
+        with tf32(False):
+            for move in range(ev.MOVE_CAP + 1):
+                p_card, p_cpu = on_card(obs), on_cpu(obs)
+                if np.argmax(p_card) != np.argmax(p_cpu):
+                    top = np.sort(p_cpu)
+                    return episode, move, float(top[-1] - top[-2])
+                action = ev.choose_action(lambda _: p_cpu, obs, HOST_EVAL_EPSILON)
+                obs, _, terminated, _, _ = env.step(action)
+                if terminated:
+                    break
+        raise RuntimeError(f"check failed: episode {episode} differs, but no argmax flips")
+
+    # 20g
+    def shell_train(self) -> str:
+        """``tools.train.main`` on 20b's CSV: Game2048Model(64, 8) (the
+        CLI's defaults), one epoch, ``--fast-eval`` before and after."""
+        from gym2048_tpu_torch.data import TrainingData
+        from gym2048_tpu_torch.tools import train
+        from gym2048_tpu_torch.train import bc
+        from gym2048_tpu_torch.utils.checkpoint import load_model
+
+        np.random.seed(SEED)  # TrainingData.shuffle draws from numpy's global generator
+        with timed_methods(bc.BCTrainer, ("fit",)) as timer:
+            val, secs = self.shell_cli(train.main, ["selfplay.csv", "--epochs", "1",
+                                                    "--fast-eval", "--seed", str(SEED)])
+        n_train = int(self.shell_log_value(r"(\d+) training / (\d+) validation samples"))
+        fit_s = timer.seconds["fit"][0]
+        variables, meta = load_model("model.pkl")
+        check(meta["model"] == "Game2048Model" and "trunk" in variables["params"]
+              and sum(k.startswith("ResidualBlock_") for k in variables["params"]["trunk"]) == 8,
+              "model.pkl is not Game2048Model(64, 8) in the flax layout")
+        # the labels are uniform legal moves: one epoch must beat a uniform guess
+        # over the four moves (loss ln 4), and no more than legality is learnable
+        check(val["loss"] < math.log(4) and 0.2 <= val["accuracy"] <= 1.0,
+              f"validation loss {val['loss']}, accuracy {val['accuracy']}")
+        td = TrainingData()
+        td.import_csv("selfplay.csv")
+        best_acc, best_loss = legal_chance(td.get_x())
+        return (f"Game2048Model(64, 8), {n_train} training samples (80%, 8x augmented, "
+                f"deduplicated), one epoch at batch 128: fit {fit_s:.2f} s "
+                f"({n_train / fit_s:.1f} samples/s); validation loss {val['loss']:.4f} "
+                f"(ln 4 = 1.3863, the legal-uniform best {best_loss:.4f}), accuracy "
+                f"{val['accuracy']:.4f} (chance 0.25, the legal-uniform best "
+                f"{best_acc:.4f}); the CLI {secs:.2f} s with "
+                f"--fast-eval of 10 episodes before and after")
+
     # 18
     def ops_on_card(self) -> str:
         """Every ``ops`` function on CUDA tensors against its CPU result:
@@ -2065,6 +2568,17 @@ def main() -> int:
     smoke.run("19c", "ppo learning", smoke.ppo_learning)
     smoke.run("19d", "bc", smoke.bc_epoch)
     smoke.run("19e", "ppo evaluation", smoke.ppo_evaluation)
+    try:
+        smoke.run("20a", "shell engine", smoke.shell_engine)
+        smoke.run("20b", "shell selfplay", smoke.shell_selfplay)
+        smoke.run("20c", "shell pretrain_bc", smoke.shell_bc)
+        smoke.run("20d", "shell selfplay model", smoke.shell_selfplay_model)
+        smoke.run("20e", "shell ppo", smoke.shell_ppo)
+        smoke.run("20f", "shell evaluate", smoke.shell_evaluate)
+        smoke.run("20g", "shell train", smoke.shell_train)
+    finally:
+        if getattr(smoke, "repo", None):
+            os.chdir(smoke.repo)
     smoke.run("16", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

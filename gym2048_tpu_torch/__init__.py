@@ -19,8 +19,19 @@ Layout (mirrors ``gym2048_tpu``):
 * ``agents/expectimax.py`` — the expectimax agents, with an n-tuple network,
   the heuristic or a PPO critic as the leaf;
 * ``train/`` — the TD learner (``td.py``), PPO (``ppo.py``), behavioural
-  cloning (``bc.py``) and the batched evaluator (``eval.py``);
+  cloning (``bc.py``) and the evaluators (``eval.py``: the reference
+  protocol's host loop and the batched one);
 * ``ops/`` — observation encoders, symmetry augmentation, reward math;
+* ``core/rules_np.py``, ``env/adapter.py``, ``env/parity.py`` — the numpy
+  rules, the reference's single env and its spawn streams (host side);
+  ``env/registration.py`` and ``env/vector.py`` — the gymnasium class
+  (``Torch2048-v0``) and vector env, which import gymnasium;
+* ``native/`` — the g++ engine and CSV codec (``engine2048.cpp``, built
+  into ``build/`` at first use), and ``data/`` — ``TrainingData`` and its
+  35/36-column CSV schema;
+* ``utils/`` — checkpoints, model files, metrics, rendering and GIFs;
+* ``tools/`` — the CLIs (selfplay, train, pretrain_bc, ppo, evaluate and the
+  CSV tools), ``python -m gym2048_tpu_torch.tools.<name>``;
 * ``interop.py`` — state and CNN weights carried between the JAX package and
   the port as numpy;
 * ``entry.py`` — the flagship actor-critic's forward as one callable.

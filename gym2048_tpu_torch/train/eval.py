@@ -1,20 +1,19 @@
-"""Evaluation harness, the batched half (counterpart of
-``gym2048_tpu/train/eval.py``).
+"""Evaluation harness (counterpart of ``gym2048_tpu/train/eval.py``).
 
-Protocol (the reference's): episodes on fresh envs with illegal-move reward
--1, epsilon-greedy over the policy's argmax, a 2000-move cap; the result
-reports the average and max total reward and the highest tile, and
+Protocol (the reference's, train.py:122-229): episodes on a fresh env with
+illegal-move reward -1, epsilon-greedy over the policy's argmax, env seed
+``456+i`` / agent seed ``123+i``, a 2000-move cap; the result reports the
+average and max total reward and the highest tile, and
 :func:`report_evaluation_results` writes ``scores_<label>.csv``.
 
 * :func:`make_predict_fn` and :func:`choose_action`: the one-observation
   policy, with Python's ``random`` in the reference's call order;
+* :func:`evaluate_episode` and :func:`evaluate_model`: the host loop over
+  the numpy adapter (``env/adapter.py``), one model call per move, bit-exact
+  to the reference's NumPy streams for a given ``predict_fn``;
 * :func:`evaluate_batched`: all episodes at once on the model's device,
   with its random draws from a ``torch.Generator`` (the same laws as the
   JAX evaluator's keys, another stream).
-
-``evaluate_episode`` and ``evaluate_model`` (the host loop over the
-Gymnasium adapter, bit-exact to the reference's NumPy streams) are not
-ported yet: they wait for the adapter and ``rules_np``.
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from gym2048_tpu_torch.env import batched
+from gym2048_tpu_torch.env import adapter, batched
 from gym2048_tpu_torch.env.batched import EnvConfig
 from gym2048_tpu_torch.models.resnet import ActorCritic, boards_to_model_input
 from gym2048_tpu_torch.ops import obs as obs_ops
@@ -46,12 +45,16 @@ def _policy_logits(model, obs: torch.Tensor) -> torch.Tensor:
 
 
 def make_predict_fn(model) -> Callable[[np.ndarray], np.ndarray]:
-    """One-observation probability function of ``model`` (eval mode): the
-    ``(16, 4, 4)`` env observation -> probabilities ``(4,)`` as numpy."""
+    """One-observation probability function of ``model``, which must be in
+    eval mode (JAX's ``train=False``): the ``(16, 4, 4)`` env observation ->
+    probabilities ``(4,)`` as numpy, from one batch-1 forward on the
+    model's device."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def predict(observation: np.ndarray) -> np.ndarray:
+        if model.training:
+            raise ValueError("make_predict_fn needs the model in eval mode (model.eval())")
         board = obs_ops.unstack_env(torch.as_tensor(np.asarray(observation)))
         obs = boards_to_model_input(board[None].to(device))
         if isinstance(model, ActorCritic):
@@ -72,17 +75,67 @@ def choose_action(predict_fn, observation: np.ndarray, epsilon: float = 0.0) -> 
     return random.randint(0, 3)
 
 
-HOST_EVAL_NOT_PORTED = (
-    "evaluate_episode and evaluate_model (the host loop over the Gymnasium adapter) are "
-    "not ported yet: ROADMAP.md Queue 1 item 9; use evaluate_batched")
+def evaluate_episode(predict_fn, env: adapter.Game2048Env, epsilon: float,
+                     seed: int | None = None, agent_seed: int | None = None
+                     ) -> tuple[float, int, int, int]:
+    """One evaluation episode (reference train.py:122-165): Python's
+    ``random`` seeded ``agent_seed`` (fresh entropy if None), ``env`` reset
+    with ``seed``, at most ``MOVE_CAP + 1`` moves. Returns ``(total_reward,
+    moves_taken, total_illegals, highest_tile)``."""
+    if agent_seed is not None:
+        random.seed(agent_seed)
+    else:
+        random.seed()
+
+    total_reward = 0.0
+    total_illegals = 0
+    moves_taken = 0
+
+    state, _ = env.reset(seed=seed)
+    info = {"highest": env.highest()}
+    while True:
+        action = choose_action(predict_fn, state, epsilon)
+        next_state, reward, terminated, truncated, info = env.step(action)
+        done = terminated or truncated
+        total_reward += reward
+        if info["illegal_move"]:
+            total_illegals += 1
+        moves_taken += 1
+        if moves_taken > MOVE_CAP:
+            break
+        state = next_state
+        if done:
+            break
+
+    return total_reward, moves_taken, total_illegals, int(info["highest"])
 
 
-def evaluate_episode(*args, **kwargs):
-    raise NotImplementedError(HOST_EVAL_NOT_PORTED)
+def evaluate_model(predict_fn, episodes: int, epsilon: float, verbose: bool = True) -> dict:
+    """``episodes`` host episodes of the reference protocol (reference
+    train.py:168-214) on one :class:`~gym2048_tpu_torch.env.adapter.
+    Game2048Env` with illegal reward -1, episode i with env seed ``456+i``
+    and agent seed ``123+i``."""
+    env = adapter.Game2048Env()
+    env.set_illegal_move_reward(-1.0)
 
+    scores = []
+    for i in range(episodes):
+        total_reward, moves, illegals, highest = evaluate_episode(
+            predict_fn, env, epsilon, seed=456 + i, agent_seed=123 + i)
+        if verbose:
+            print(f"Episode {i}, epsilon {epsilon}, highest {highest}, "
+                  f"reward {total_reward:.1f}, moves {moves}, illegals {illegals}")
+        scores.append({"total_reward": total_reward, "highest": highest, "moves": moves,
+                       "illegal_moves": illegals})
 
-def evaluate_model(*args, **kwargs):
-    raise NotImplementedError(HOST_EVAL_NOT_PORTED)
+    average_score = sum(s["total_reward"] for s in scores) / episodes
+    max_score = max(s["total_reward"] for s in scores)
+    highest_tile = max(s["highest"] for s in scores)
+    if verbose:
+        print(f"Highest tile: {highest_tile}, Average score: {average_score:.1f}, "
+              f"Max score: {max_score:.1f}")
+    return {"Average score": average_score, "Max score": max_score,
+            "Highest tile": highest_tile, "Episodes": scores}
 
 
 def report_evaluation_results(results: dict, label: str = "eval") -> None:

@@ -130,6 +130,14 @@ class Optimizer:
         self.adam.zero_grad(set_to_none=True)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """Adam's state and the schedule's count (JAX's ``opt_state``)."""
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
 
 def linear_schedule(init_value: float, end_value: float,
                     transition_steps: int) -> Callable[[int], float]:

@@ -10,7 +10,9 @@ Tolerances, with their reasons:
   within 1e-5 of the largest magnitude: f32 roundoff of the critic (values
   in the thousands) and of the expectation over 32 spawns; the port runs
   the N leaves in one forward, JAX one board at a time under ``vmap``.
-* ``choose_action``, ``report_evaluation_results``: equal.
+* ``choose_action``, ``report_evaluation_results``, and the host loop
+  (``evaluate_episode``, ``evaluate_model``) with one shared numpy
+  ``predict_fn``: equal, episode by episode and byte for byte.
 * ``evaluate_batched`` draws its own spawns and actions (another stream),
   so it is held to the protocol's invariants, and the committed model to
   its recorded average within 3 standard errors (``-m slow``).
@@ -105,10 +107,69 @@ def test_report_evaluation_results_writes_the_same_bytes(tmp_path, monkeypatch):
     assert written[0] == written[1]
 
 
-def test_host_evaluator_names_its_queue_item():
-    for fn in (teval.evaluate_episode, teval.evaluate_model):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            fn(None, 1, 0.0)
+def numpy_policy(seed):
+    """A fixed numpy probability function of the observation, shared by
+    both evaluators."""
+    w = np.random.default_rng(seed).normal(size=(256, 4))
+
+    def predict(observation):
+        z = np.asarray(observation, np.float64).reshape(-1) @ w
+        e = np.exp(z - z.max())
+        return e / e.sum()
+
+    return predict
+
+
+@pytest.mark.parametrize("epsilon", [0.0, 0.1, 1.0])
+def test_evaluate_model_equals_jax_with_a_shared_predict_fn(tmp_path, monkeypatch, epsilon):
+    """The reference protocol on both packages' host loops with one numpy
+    ``predict_fn``: the same episodes (env seed 456+i, agent seed 123+i,
+    illegal reward -1), results and ``scores_<label>.csv`` bytes."""
+    predict = numpy_policy(1)
+    got = teval.evaluate_model(predict, 4, epsilon, verbose=False)
+    want = jeval.evaluate_model(predict, 4, epsilon, verbose=False)
+    assert got == want
+    assert sum(e["moves"] for e in got["Episodes"]) > 8
+    written = []
+    for name, module, res in (("jax", jeval, want), ("port", teval, got)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        module.report_evaluation_results(res, label="shared")
+        written.append((tmp_path / name / "scores_shared.csv").read_bytes())
+    assert written[0] == written[1]
+
+
+def test_evaluate_episode_equals_jax_and_caps_moves():
+    """One episode on each package's adapter; with a policy that never
+    makes an illegal move (the first legal direction) the episode runs to
+    a dead board or the 2000-move cap (2001 moves)."""
+    from gym2048_tpu.env import adapter as jadapter
+    from gym2048_tpu_torch.core import rules_np
+    from gym2048_tpu_torch.env import adapter
+
+    def first_legal(observation):
+        board = adapter.unstack_np(np.asarray(observation))
+        return rules_np.legal_mask(board).astype(float) + np.array([0.4, 0.3, 0.2, 0.1])
+
+    got = teval.evaluate_episode(first_legal, adapter.Game2048Env(), 0.0, seed=11, agent_seed=3)
+    want = jeval.evaluate_episode(first_legal, jadapter.Game2048Env(), 0.0, seed=11,
+                                  agent_seed=3)
+    assert got == want and got[2] == 0 and 100 < got[1] <= teval.MOVE_CAP + 1
+    env = adapter.Game2048Env()
+    env.set_illegal_move_reward(-1.0)
+    always_up = teval.evaluate_episode(lambda o: np.array([1.0, 0, 0, 0]), env, 0.0, seed=0,
+                                       agent_seed=0)
+    assert always_up[2] == 1  # only up: the episode ends on its illegal move
+
+
+def test_make_predict_fn_needs_eval_mode():
+    _, _, model = small_models("ActorCritic")
+    predict = teval.make_predict_fn(model)
+    observation = obs_ops.env_stack(torch.from_numpy(boards(1, 4)[0])).numpy()
+    assert predict(observation).shape == (4,)
+    model.train()
+    with pytest.raises(ValueError, match="eval mode"):
+        predict(observation)
 
 
 @pytest.mark.parametrize("mask_illegal", [False, True])

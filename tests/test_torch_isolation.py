@@ -17,6 +17,22 @@ PORT_MODULES = sorted(
     for p in PORT.rglob("*.py")
 )
 
+# The host side and the CLI shell; every one but GYMNASIUM_MODULES runs on
+# the card's machine, which has no gymnasium, Orbax, ml_dtypes, pygame or
+# matplotlib, and may lack PIL and TensorBoard.
+HOST_SIDE = {
+    "gym2048_tpu_torch.core.rules_np", "gym2048_tpu_torch.native",
+    "gym2048_tpu_torch.data", "gym2048_tpu_torch.data.training_data",
+    "gym2048_tpu_torch.env.parity", "gym2048_tpu_torch.env.adapter",
+    "gym2048_tpu_torch.utils.render", "gym2048_tpu_torch.utils.metrics",
+    "gym2048_tpu_torch.utils.video", "gym2048_tpu_torch.tools",
+    *(f"gym2048_tpu_torch.tools.{name}" for name in (
+        "selfplay", "pretrain_bc", "ppo", "evaluate", "train", "merge_data", "augment_data",
+        "hflip_data", "distribute_data", "add_rewards")),
+}
+GYMNASIUM_MODULES = {"gym2048_tpu_torch.env.registration", "gym2048_tpu_torch.env.vector"}
+OPTIONAL = ("gymnasium", "orbax", "ml_dtypes", "pygame", "matplotlib", "PIL", "tensorboard")
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|gym2048_tpu)(?![\w_])", re.M)
 
 
@@ -34,7 +50,7 @@ def test_port_modules_are_found():
             "gym2048_tpu_torch.ops.returns", "gym2048_tpu_torch.models.resnet",
             "gym2048_tpu_torch.entry", "gym2048_tpu_torch.train.ppo",
             "gym2048_tpu_torch.train.bc", "gym2048_tpu_torch.train.eval",
-            "gym2048_tpu_torch.models"} <= set(PORT_MODULES)
+            "gym2048_tpu_torch.models", *HOST_SIDE, *GYMNASIUM_MODULES} <= set(PORT_MODULES)
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -56,6 +72,33 @@ def test_imports_without_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr
     assert "ISOLATED" in done.stdout
+
+
+def test_card_path_imports_without_the_optional_packages():
+    """Every module but the gymnasium ones, and chip_smoke.py, imports with
+    gymnasium, Orbax, ml_dtypes, pygame, matplotlib, PIL and TensorBoard
+    unavailable; the gymnasium ones then fail on gymnasium alone."""
+    card = [m for m in PORT_MODULES if m not in GYMNASIUM_MODULES]
+    code = "\n".join([
+        "import sys",
+        f"for name in {['jax', 'gym2048_tpu', *OPTIONAL]!r}:",
+        "    sys.modules[name] = None",
+        "import importlib",
+        f"for name in {card!r} + ['chip_smoke']:",
+        "    importlib.import_module(name)",
+        f"for name in {sorted(GYMNASIUM_MODULES)!r}:",
+        "    try:",
+        "        importlib.import_module(name)",
+        "    except ImportError as e:",
+        "        assert 'gymnasium' in str(e), e",
+        "    else:",
+        "        raise AssertionError(name + ' imported without gymnasium')",
+        "print('CARD PATH OK')",
+    ])
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+    assert "CARD PATH OK" in done.stdout
 
 
 def test_no_source_names_jax_or_the_jax_package_in_an_import():
