@@ -56,6 +56,17 @@ production shape with checkpoints, the restored state equal leaf for leaf,
 and ``--resume`` -> ``evaluate`` (the reference protocol on the card and on
 the CPU, and ``--fast``) -> ``train`` (Game2048Model(64, 8)).
 
+Then data parallel (phases 21a-21c): ``learn(mesh=...)`` on one rank over
+NCCL (path "td dp"), for the flagship and the small net's tc1b config,
+equal leaf for leaf to ``train_chunk`` in deterministic mode; two ranks
+sharing the card over gloo, this script started twice as ``--dp-worker``:
+the small net's sharded chunks (replicas bit-identical, the merge rebuilt
+from the ranks' local chunks) and a PPO iteration at the production shape
+(the rollout's fingerprint equal to one process's, the loss within
+``DP_LOSS_RTOL``). Last (22): ``convert_model`` of the committed interop
+fixtures into the port's models on the card, a ``profiler.trace`` that
+names the gather kernel, the debug checks, and a bf16 table artifact.
+
 Before the paths, the single-step kernels, and the rollout for 32 steps,
 are held bit for bit against their plain versions on 65,536 boards of
 eight families (random, exponents 15-17, dead, full with merges only, one
@@ -151,6 +162,7 @@ PATHS = {
     "td small": ("gather_values",),
     "ppo": (),  # the CNN, PPO's env and the optimiser: plain PyTorch, no kernel of ours
     "shell": (),  # the CLIs (phase 20): the same device code as "ppo", and the host
+    "td dp": ("gather_values",),  # learn(mesh=...) on one rank over NCCL (phase 21a)
 }
 
 # The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
@@ -268,6 +280,22 @@ SHELL_PPO = ["--n-envs", "4096", "--n-steps", "128", "--batch-size", "16384", "-
 SHELL_PPO_ROLLOUT = 4096 * 128
 HOST_EVAL_EPISODES, HOST_EVAL_EPSILON, FAST_EVAL_EPISODES = 10, 0.1, 512
 FLIP_MARGIN_MAX = 1e-4     # a card/CPU argmax flip must be roundoff: a top-2 gap below this
+# Data parallel (phases 21a-21c): one rank over NCCL in this process; two ranks
+# sharing the card over gloo (NCCL refuses two ranks on one device), started
+# as workers of this script (--dp-worker), each with its half of the envs.
+# They share one card: their times are functional numbers, not scaling.
+DP_RANKS = 2
+DP_TD_CHUNKS = 2
+DP_WORKER_TIMEOUT = 300    # seconds for the two workers, start-up included
+# the production PPO shape in bf16 (bench.py::bench_ppo's), one iteration
+PPO_DP = dict(PPO_PRODUCTION, compute_dtype=torch.bfloat16, seed=SEED)
+# The 2-rank iteration's mean loss against the single process's: the same
+# rollout (bit for bit), then 128 bf16 SGD steps whose sums are grouped by
+# rank and whose BatchNorm variance is flax's E[x^2] - E[x]^2 (the single
+# process: torch's two-pass kernel); Adam lets an element's roundoff grow
+# up to a step (tests/test_torch_ppo.py), so the losses drift apart.
+DP_LOSS_RTOL = 1e-2
+INTEROP_FIXTURES = ("tests/fixtures/interop_game2048.npz", "tests/fixtures/interop_sb3_policy.npz")
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
@@ -2518,12 +2546,350 @@ class Smoke:
         return (f"{', '.join(exact)}: equal to the CPU; {', '.join(close)}: within "
                 f"{worst:.3g} of the largest magnitude (limit 1e-6)")
 
+    # 21a
+    def td_dp_one_rank(self) -> str:
+        """``learn(mesh=make_mesh(), max_chunks=1)`` on one rank over NCCL, as
+        path "td dp", for the flagship config and the small net's tc1b one:
+        in deterministic mode (the default mode's scatters and reservoir
+        writes are not repeatable, 15c) every leaf of the state equal to
+        ``train_chunk``'s from the same state; the chunk's seconds beside
+        ``train_chunk``'s in both modes. First, with no process group,
+        ``make_mesh()`` is a one-rank mesh."""
+        import torch.distributed as dist
+
+        from gym2048_tpu_torch.parallel import mesh as pmesh
+        from gym2048_tpu_torch.train import td
+
+        alone = pmesh.make_mesh()
+        check(tuple(alone.shape) == (1, 1) and alone.mesh_dim_names == ("data", "model")
+              and not dist.is_initialized(), f"the mesh without a process group: {alone}")
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+                          WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+        try:
+            t0 = time.perf_counter()
+            pmesh.init_distributed()
+            mesh = pmesh.make_mesh()
+            init_s = time.perf_counter() - t0
+            backend = dist.get_backend()
+            check(backend == "nccl", f"backend {backend}, not NCCL")
+            out = []
+            for name, kw in (("flagship", TD_FLAGSHIP), ("small tc1b", TD_SMALL)):
+                tr = td.TDTrainer(td.TDConfig(**kw), device=self.dev)
+                state = tr.init_state()
+
+                def pair(deterministic: bool):
+                    """train_chunk, then learn(mesh), each from a copy of state."""
+                    torch.use_deterministic_algorithms(deterministic)
+                    try:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        want, _ = tr.train_chunk(clone_state(state), kw["alpha"])
+                        torch.cuda.synchronize()
+                        plain_s = time.perf_counter() - t0
+                        mine = clone_state(state)
+                        t0 = time.perf_counter()
+                        got, hist = self.drive("td dp", lambda: tr.learn(
+                            mine, log_fn=None, max_chunks=1, mesh=mesh))
+                        return want, got, hist, plain_s, time.perf_counter() - t0
+                    finally:
+                        torch.use_deterministic_algorithms(False)
+
+                want, got, hist, det_plain_s, det_dp_s = pair(True)
+                diffs = state_diffs(got, want)
+                check(not diffs, f"{name}: learn(mesh) differs from train_chunk in {diffs}")
+                episodes, size = hist[-1].episodes, got["table"].numel()
+                del want, got
+                *_, plain_s, dp_s = pair(False)
+                out.append(f"{name} ({kw['n_envs']} envs x {kw['chunk_steps']} steps, {size} "
+                           f"f32 table): learn(mesh) chunk {dp_s:.3f} s, train_chunk "
+                           f"{plain_s:.3f} s; deterministic mode {det_dp_s:.3f} s and "
+                           f"{det_plain_s:.3f} s, every leaf equal, {episodes:.0f} episodes")
+                del state
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE"):
+                os.environ.pop(var, None)
+        return (f"make_mesh() without a process group: {tuple(alone.shape)}; {backend} world 1 "
+                f"and its mesh in {init_s:.3f} s; " + "; ".join(out)
+                + f"; launches {self.path_launches['td dp']}")
+
+    # 21b
+    def dp_two_ranks(self) -> str:
+        """Two ranks on the one card over gloo: this script started twice as
+        ``--dp-worker`` (:func:`dp_worker`). The small net's tc1b config at
+        full width, 4096 envs a rank, two sharded chunks: the replicated
+        leaves and the generator bit-identical across the ranks, and the
+        merged table, ``tc_e`` and ``tc_a`` equal to ``t0 + (D0 + D1)``
+        rebuilt from the two ranks' local chunks. The workers then run 21c's
+        PPO iteration."""
+        import shutil
+
+        outdir = os.path.join("build", "dp")
+        shutil.rmtree(outdir, ignore_errors=True)
+        os.makedirs(outdir)
+        port = str(free_port())
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                   str(r), port, outdir], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(DP_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_WORKER_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"worker {r} failed (rc {p.returncode}):\n{out[-4000:]}")
+        self.dp_outdir, self.dp_wall = outdir, wall
+        res = [torch.load(os.path.join(outdir, f"td_rank{r}.pt"), weights_only=True)
+               for r in range(DP_RANKS)]
+        a, b = res
+        for k in a["merged"]:
+            check(torch.equal(a["merged"][k].view(torch.int32), b["merged"][k].view(torch.int32)),
+                  f"the replicas' {k} differ")
+            want = a["t0"][k] + ((a["new"][k] - a["t0"][k]) + (b["new"][k] - b["t0"][k]))
+            check(torch.equal(a["merged"][k].view(torch.int32), want.view(torch.int32)),
+                  f"the merged {k} is not t0 + (D0 + D1)")
+        check(torch.equal(a["generator"], b["generator"]), "the replicas' generators differ")
+        moved = int((a["merged"]["table"] != a["t0"]["table"]).sum())
+        check(moved > 0 and a["episodes"] == b["episodes"], "the merge moved nothing")
+        mb = sum(v.numel() * 4 for v in a["merged"].values()) / 1e6
+        return (f"{DP_RANKS} workers over gloo on one card ({wall:.2f} s with start-up and "
+                f"21c's iteration): small tc1b, {TD_SMALL['n_envs'] // DP_RANKS} envs a rank, "
+                f"{DP_TD_CHUNKS} chunks of {TD_SMALL['chunk_steps']} steps; local chunk "
+                + ", ".join(f"{x:.3f}" for x in a["chunk_s"]) + " / "
+                + ", ".join(f"{x:.3f}" for x in b["chunk_s"]) + " s (ranks 0 / 1, sharing the "
+                f"card), merge of 3 leaves ({mb:.1f} MB through the host) "
+                + ", ".join(f"{x * 1e3:.1f}" for x in a["merge_s"]) + " ms; replicas and "
+                f"generator bit-identical, merged = t0 + (D0 + D1) bit for bit, {moved} entries "
+                f"moved in the last chunk, {a['episodes']:.0f} episodes")
+
+    # 21c
+    def ppo_dp(self) -> str:
+        """21b's workers' data-parallel PPO iteration (the production shape,
+        bf16, the sharded shuffle; 2048 envs a rank) against one process's
+        iteration of the same seed here: the parameters bit-identical across
+        the ranks, the rollout collected from both ranks with the single
+        process's fingerprint, its episode statistics equal, and the mean
+        loss within ``DP_LOSS_RTOL``."""
+        from gym2048_tpu_torch.train import ppo
+        from gym2048_tpu_torch.utils.debug import trajectory_fingerprint
+
+        res = [torch.load(os.path.join(self.dp_outdir, f"ppo_rank{r}.pt"), weights_only=True)
+               for r in range(DP_RANKS)]
+        a, b = res
+        for k in a["params"]:
+            check(torch.equal(a["params"][k], b["params"][k]), f"the replicas' {k} differ")
+        check(a["metrics"] == b["metrics"] and a["fingerprint"] == b["fingerprint"],
+              "the ranks report different metrics")
+        trainer = ppo.PPO(ppo.PPOConfig(**PPO_DP), device=self.dev)
+        state = trainer.init_state()
+        seen = []
+        collect = trainer._collect_rollout
+        trainer._collect_rollout = lambda st: seen.append(collect(st)) or seen[-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_iteration(state)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        single_s = time.perf_counter() - t0
+        traj = seen[0][0]
+        fingerprint = trajectory_fingerprint(traj.board, traj.reward, traj.done)
+        check(a["fingerprint"] == fingerprint, f"the 2-rank rollout's fingerprint "
+              f"{a['fingerprint']} is not the single process's {fingerprint}")
+        for k in ("n_episodes", "ep_return_mean", "ep_len_mean", "highest_tile_max"):
+            check(a["metrics"][k] == metrics[k], f"{k}: {a['metrics'][k]} vs {metrics[k]}")
+        loss_err = abs(a["metrics"]["loss"] - metrics["loss"]) / max(abs(metrics["loss"]), 1e-30)
+        check(loss_err <= DP_LOSS_RTOL, f"loss {a['metrics']['loss']} vs {metrics['loss']}")
+        # the weights (not BatchNorm's running statistics) against the rate:
+        # one Adam step moves an element by about lr
+        drift = max((a["params"][k].float() - v.detach().float().cpu()).abs().max().item()
+                    for k, v in state.model.named_parameters()) / trainer.cfg.lr
+        self.dp_ppo_state = state
+        return (f"production shape (4096 x 128, batch 16,384, bf16, sharded): the 2-rank "
+                f"iteration {a['iteration_s']:.3f} / {b['iteration_s']:.3f} s (ranks 0 / 1, "
+                f"the first in each worker, sharing the card), one process {single_s:.3f} s; "
+                f"parameters bit-identical across the ranks; rollout fingerprint {fingerprint} "
+                f"equal; episodes {metrics['n_episodes']:.0f}, ep_return_mean "
+                f"{metrics['ep_return_mean']:.3f} equal; loss {a['metrics']['loss']:.6f} vs "
+                f"{metrics['loss']:.6f} (relative {loss_err:.2e}, limit {DP_LOSS_RTOL:g}); "
+                f"largest weight difference from the single process {drift:.3g} x lr "
+                f"over {trainer.cfg.n_epochs * trainer.cfg.n_minibatches} "
+                f"SGD steps")
+
+    # 22
+    def shell_rest(self) -> str:
+        """The rest of the shell on the card: ``convert_model`` of the
+        committed interop fixtures (``.pth`` and an SB3 ``.zip`` built from
+        them) through ``.pkl`` into the port's models, whose forward with
+        TF32 off equals the fixtures' recorded outputs (test_interop.py's
+        tolerances); ``profiler.trace`` over one small-net chunk, whose trace
+        names the gather kernel; ``validate_boards`` and
+        ``assert_finite_tree`` on 21c's state; ``save_array_bf16`` of the
+        small net's table, read back as the table's bf16 rounding."""
+        import io
+        import zipfile
+
+        from gym2048_tpu_torch import interop
+        from gym2048_tpu_torch.models.resnet import boards_to_model_input
+        from gym2048_tpu_torch.tools import convert_model
+        from gym2048_tpu_torch.utils import checkpoint, debug, profiler
+
+        work = os.path.join("build", "convert")
+        os.makedirs(work, exist_ok=True)
+        errs = []
+        for path in INTEROP_FIXTURES:
+            with np.load(path) as z:
+                sd = {k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}
+                rest = {k: z[k] for k in z.files if not k.startswith("sd::")}
+            name = os.path.basename(path)[:-4]
+            if "expected_probs" in rest:
+                src = os.path.join(work, name + ".pth")
+                torch.save(sd, src)
+            else:
+                buf = io.BytesIO()
+                torch.save(sd, buf)
+                src = os.path.join(work, name + ".zip")
+                with zipfile.ZipFile(src, "w") as zf:
+                    zf.writestr("policy.pth", buf.getvalue())
+            dst = os.path.join(work, name + ".pkl")
+            with quiet(os.path.join(work, "convert.log")):
+                convert_model.main([src, dst])
+            variables, _ = checkpoint.load_model(dst)
+            model = interop.resnet_from_variables(variables, device=self.dev)
+            x = boards_to_model_input(torch.as_tensor(rest["boards"], device=self.dev))
+            with tf32(False), torch.no_grad():
+                out = model(x)
+            pairs = ([(out, rest["expected_probs"], 1e-6)] if "expected_probs" in rest else
+                     [(out[0], rest["expected_logits"], 1e-5),
+                      (out[1], rest["expected_values"], 1e-5)])
+            for got, want, atol in pairs:
+                got = got.float().cpu().numpy()
+                check(np.allclose(got, want, rtol=1e-5, atol=atol),
+                      f"{name} through convert_model: {np.abs(got - want).max()}")
+                errs.append(float(np.abs(got - want).max()))
+
+        tr, state = self.small_trainer, clone_state(self.small_state)
+        with profiler.trace(os.path.join("build", "traces")) as prof:
+            with profiler.annotate("td_small_chunk"):
+                tr.train_chunk(state, TD_SMALL["alpha"])
+            torch.cuda.synchronize()
+        names = {e.get("name", "") for e in json.load(open(prof.trace_path))["traceEvents"]}
+        gathers = sorted({short_kernel_name(n) for n in names if "gather1_kernel" in n
+                          or "gather4_kernel" in n})
+        check(gathers and "td_small_chunk" in names,
+              f"the trace names no gather kernel or annotation ({len(names)} names)")
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+
+        ppo_state = self.dp_ppo_state
+        ok = debug.validate_boards(ppo_state.env_state.board)
+        debug.assert_finite_tree(ppo_state, "ppo")
+
+        table = self.small_state["table"]
+        prefix = os.path.join("build", "bf16", "small")
+        t0 = time.perf_counter()
+        paths = checkpoint.save_array_bf16(prefix, table, meta={"arch": "small"})
+        save_s = time.perf_counter() - t0
+        back, meta = checkpoint.load_array_bf16(prefix)
+        want = table.to(torch.bfloat16).float().cpu().numpy()
+        check(meta == {"arch": "small"} and np.array_equal(back.view(np.uint32),
+                                                           want.view(np.uint32)),
+              "the bf16 artifact is not the table's bf16 rounding")
+        size = sum(os.path.getsize(p) for p in paths) / 1e6
+        return (f"convert_model .pth and SB3 .zip -> .pkl -> the port's models on the card "
+                f"(TF32 off): largest error against the recorded outputs "
+                f"{max(errs):.2e}; profiler.trace of one small chunk: {trace_mb:.1f} MB, "
+                f"kernels {gathers}; validate_boards on {ok.numel()} boards and "
+                f"assert_finite_tree on 21c's state pass; save_array_bf16 of the "
+                f"{table.numel()}-entry table in {save_s:.3f} s ({size:.2f} MB, "
+                f"{len(paths) - 1} part), read back as its bf16 rounding bit for bit")
+
     # 16
     def launch_counters(self) -> str:
         self.zero_launches()
         for name in KERNELS:
             check(self.run_launches[name] > 0, f"{name} never launched")
         return (f"per path {self.path_launches}; in the whole run {self.run_launches}")
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_worker(rank: int, port: str, outdir: str) -> int:
+    """One of phase 21b's ranks (``--dp-worker``): ``init_distributed`` over
+    gloo (its default for two ranks on one card), then the small net's
+    sharded chunks and one data-parallel PPO iteration; writes
+    ``td_rank<r>.pt`` and ``ppo_rank<r>.pt`` into ``outdir``."""
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(DP_RANKS))
+    from gym2048_tpu_torch.parallel import mesh as pmesh
+    from gym2048_tpu_torch.train import ppo, td
+    from gym2048_tpu_torch.utils.debug import trajectory_fingerprint
+
+    pmesh.init_distributed()
+    check(dist.get_backend() == "gloo", f"backend {dist.get_backend()}, not gloo")
+    mesh, dev = pmesh.make_mesh(), pmesh.rank_device("cuda")
+    check(pmesh.data_rank(mesh) == rank and pmesh.data_size(mesh) == DP_RANKS, f"{mesh}")
+
+    cfg = td.TDConfig(**TD_SMALL)
+    tr = td.TDTrainer(cfg, device=dev)
+    state = td.shard_td_state(tr.init_state(), mesh)
+    chunk = tr.make_sharded_chunk(mesh)
+    chunk_s, merge_s = [], []
+    for _ in range(DP_TD_CHUNKS):
+        t0 = {k: state[k].clone() for k in ("table", "tc_e", "tc_a")}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        new, parts = chunk.local(state, cfg.alpha)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - start)
+        start = time.perf_counter()
+        totals = chunk.reduce(parts)
+        torch.cuda.synchronize()
+        merge_s.append(time.perf_counter() - start)
+        state, metrics = chunk.merge(state, new, totals)
+    torch.save({"t0": {k: v.cpu() for k, v in t0.items()},
+                "new": {k: new[k].cpu() for k in t0},
+                "merged": {k: state[k].cpu() for k in t0},
+                "generator": state["generator"].get_state(),
+                "episodes": float(metrics["episodes"]), "chunk_s": chunk_s, "merge_s": merge_s},
+               os.path.join(outdir, f"td_rank{rank}.pt"))
+    del state, new, t0, tr
+
+    trainer = ppo.PPO(ppo.PPOConfig(**PPO_DP), device=dev, mesh=mesh)
+    pstate = trainer.init_state()
+    seen = []
+    collect = trainer._collect_rollout
+    trainer._collect_rollout = lambda st: seen.append(collect(st)) or seen[-1]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pstate, pmetrics = trainer.train_iteration(pstate)
+    pmetrics = {k: float(v) for k, v in pmetrics.items()}
+    iteration_s = time.perf_counter() - start
+    traj = seen[0][0]
+    rollout = [pmesh.gather_batch(x, mesh, axis=1) for x in (traj.board, traj.reward, traj.done)]
+    torch.save({"params": {k: v.cpu() for k, v in pstate.model.state_dict().items()},
+                "metrics": pmetrics, "fingerprint": trajectory_fingerprint(*rollout),
+                "iteration_s": iteration_s}, os.path.join(outdir, f"ppo_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -2579,6 +2945,10 @@ def main() -> int:
     finally:
         if getattr(smoke, "repo", None):
             os.chdir(smoke.repo)
+    smoke.run("21a", "td dp one rank", smoke.td_dp_one_rank)
+    smoke.run("21b", "dp two ranks", smoke.dp_two_ranks)
+    smoke.run("21c", "ppo dp", smoke.ppo_dp)
+    smoke.run("22", "shell rest", smoke.shell_rest)
     smoke.run("16", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -2693,11 +3063,15 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                              "baseline)")
     parser.add_argument("--rounds", type=int, default=GATHER_AB_ROUNDS,
                         help="rounds of --gather-ab")
+    parser.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
+                        help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
 
 
 if __name__ == "__main__":
     args = parse_args(sys.argv[1:])
+    if args.dp_worker and torch.cuda.is_available():
+        sys.exit(dp_worker(int(args.dp_worker[0]), *args.dp_worker[1:]))
     if args.gather_ab and torch.cuda.is_available():
         sys.exit(gather_ab(args.gather_ab, args.rounds))
     sys.exit(main())

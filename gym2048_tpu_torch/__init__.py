@@ -29,9 +29,14 @@ Layout (mirrors ``gym2048_tpu``):
 * ``native/`` — the g++ engine and CSV codec (``engine2048.cpp``, built
   into ``build/`` at first use), and ``data/`` — ``TrainingData`` and its
   35/36-column CSV schema;
-* ``utils/`` — checkpoints, model files, metrics, rendering and GIFs;
-* ``tools/`` — the CLIs (selfplay, train, pretrain_bc, ppo, evaluate and the
-  CSV tools), ``python -m gym2048_tpu_torch.tools.<name>``;
+* ``utils/`` — checkpoints, model files and bf16 table artifacts, metrics,
+  rendering and GIFs, ``torch.profiler`` traces (``profiler``), board
+  checks and rollout fingerprints (``debug``);
+* ``parallel/`` — the ``(data, model)`` mesh over ``torch.distributed`` and
+  the data-parallel layout of the TD learner's sharded chunk and of PPO;
+* ``tools/`` — the CLIs (selfplay, train, pretrain_bc, ppo, evaluate, the
+  CSV tools, the human-play collector ``gather`` and ``convert_model``),
+  ``python -m gym2048_tpu_torch.tools.<name>``;
 * ``interop.py`` — state and CNN weights carried between the JAX package and
   the port as numpy;
 * ``entry.py`` — the flagship actor-critic's forward as one callable.

@@ -9,7 +9,9 @@ empty int8 boards, on the card unless ``device`` says otherwise. Run it as
     fn, args = entry()
     logits, value = fn(*args)
 
-The JAX module's multi-chip dry run is not ported here.
+The JAX module's multi-chip dry run runs one process over several
+devices; data parallelism here runs one process per rank
+(:mod:`gym2048_tpu_torch.parallel`, ``tests/test_torch_parallel.py``).
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ tree (``{"params", "batch_stats"}`` as numpy, as ``utils/checkpoint.load_model``
 returns it) and the port's modules: a flax conv kernel ``(kH, kW, I, O)`` is
 a torch weight ``(O, I, kH, kW)``, and a dense kernel over the (h, w, c)
 flatten ``(P * C, out)`` is a torch weight ``(out, C * P)`` over the
-(c, h, w) flatten. Both are transposes, so a round trip is exact.
+(c, h, w) flatten. Both are transposes, so a round trip is exact. This is
+the port's one layout map: ``tools/convert_model.py`` builds on it
+(:func:`variables_from_state_dict`) for the reference's torch and SB3 files.
 """
 
 from __future__ import annotations
@@ -186,11 +188,20 @@ def resnet_variables(model: Game2048Model | ActorCritic) -> dict:
     """Inverse of :func:`resnet_state_dict`: the port's model -> the JAX
     variable tree ``{"params", "batch_stats"}`` of float32 numpy arrays,
     which the port's and the JAX package's ``save_model`` write."""
-    kind = type(model).__name__
     sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    return variables_from_state_dict(sd, type(model).__name__, model.residual_blocks,
+                                     model.filters)
+
+
+def variables_from_state_dict(sd: Mapping, kind: str, blocks: int, filters: int) -> dict:
+    """A state dict with the port's (the reference torch models') names, as
+    numpy arrays, of a ``kind`` model (``"Game2048Model"`` or
+    ``"ActorCritic"``) -> the JAX variable tree ``{"params",
+    "batch_stats"}``; entries the tree has no place for
+    (``num_batches_tracked``) are dropped, dtypes are kept."""
     tree: dict = {"params": {}, "batch_stats": {}}
-    for name, coll, path, how in _resnet_entries(kind, model.residual_blocks, model.filters):
-        a = sd[name]
+    for name, coll, path, how in _resnet_entries(kind, blocks, filters):
+        a = np.asarray(sd[name])
         if how == "conv":
             a = _conv_to_flax(a)
         elif how is not None:

@@ -26,7 +26,12 @@ running variance takes the batch's biased variance (torch's own
 torch's fused ``batch_norm`` (one kernel forward, one backward); the
 batch's variance there is computed in two passes where flax computes
 ``E[x^2] - E[x]^2`` (``use_fast_variance``): the same to roundoff.
-Statistics are always float32.
+Statistics are always float32. Inside :func:`sync_batch_norm` (data-parallel
+PPO), a train-mode BatchNorm takes its batch statistics over the ranks of a
+process group, through an autograd-aware ``all_reduce`` of each channel's
+sum and sum of squares, and computes flax's ``E[x^2] - E[x]^2`` variance;
+torch's ``nn.SyncBatchNorm`` does not serve: it refuses CPU tensors and
+updates the running variance with the unbiased variance.
 
 Train and eval follow ``module.train()`` / ``module.eval()``, where flax
 passes ``train=``; a model is built in eval mode, as the JAX modules'
@@ -42,6 +47,8 @@ BatchNorm scale 1 and bias 0, drawn from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +78,23 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+# (process group, ranks in it) of the BatchNorm statistics, or None: one rank
+_SYNC = None
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group, world: int):
+    """Train-mode BatchNorm inside the block takes its batch statistics over
+    the ``world`` ranks of ``group`` (each rank holding an equal share of
+    the batch); the running statistics take the global batch's."""
+    global _SYNC
+    prev, _SYNC = _SYNC, (group, world)
+    try:
+        yield
+    finally:
+        _SYNC = prev
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax's ``nn.BatchNorm`` over NCHW activations (see the module
     docstring), with torch's parameter and buffer names."""
@@ -78,7 +102,30 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, channels: int, device=None):
         super().__init__(channels, eps=1e-5, momentum=0.01, device=device)
 
+    def _synced(self, x: torch.Tensor, group, world: int) -> torch.Tensor:
+        """Train mode over the ranks of ``group`` (see :func:`sync_batch_norm`)."""
+        import warnings
+
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * world
+        with warnings.catch_warnings():  # newer torch marks it deprecated
+            warnings.simplefilter("ignore", FutureWarning)
+            sums = all_reduce(torch.stack([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]),
+                              group=group)
+        mean = sums[0] / n
+        var = (sums[1] / n - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, 0.01)
+            self.running_var.lerp_(var, 0.01)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and _SYNC is not None:
+            return self._synced(x, *_SYNC)
         if self.training:
             # normalise by the batch's biased variance in torch's fused kernel,
             # and update the running statistics with flax's rule

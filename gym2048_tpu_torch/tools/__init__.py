@@ -12,8 +12,12 @@ fallback to the CPU when CUDA is missing):
 * ``hflip_data``     — 2x horizontal flip (hflip_training_data.py)
 * ``distribute_data``— orientation-balancing split (distribute_training_data.py)
 * ``add_rewards``    — recompute rewards by replay (add_rewards_to_training_data.py)
+* ``gather``         — interactive human-play collector (gather_training_data.py;
+  pygame and matplotlib, imported when it runs)
+* ``convert_model``  — weights between the flax-layout .pkl/.npz and the
+  reference's torch .pth/.pt and SB3 .zip (no ``--device``: nothing there
+  runs on the card)
 
-Run as ``python -m gym2048_tpu_torch.tools.<name> ...``. Not ported yet:
-``gather`` (the interactive human-play collector: pygame and matplotlib)
-and ``convert_model`` (ROADMAP.md, Queue 1).
+Run as ``python -m gym2048_tpu_torch.tools.<name> ...``; ``ppo --mesh``
+under ``torchrun`` for data parallel.
 """

@@ -6,17 +6,22 @@ periodic checkpoints, periodic greedy-episode videos, JSONL (and, where it
 is installed, TensorBoard) logging, final model save. Extras, as in the
 JAX CLI: any env batch size, ``--resume`` from the latest checkpoint (the
 whole state: weights, BatchNorm statistics, Adam, the schedule's count,
-the envs, the generator, ``update_idx``), ``--bf16``, ``--mask-illegal``;
-and ``--device``. ``--mesh`` (data parallel) is not ported yet.
+the envs, the generator, ``update_idx``), ``--bf16``, ``--mask-illegal``,
+``--mesh``; and ``--device``.
+
+``--mesh`` trains data-parallel over the ranks of ``torchrun --standalone
+--nproc-per-node N -m gym2048_tpu_torch.tools.ppo --mesh ...`` (NCCL when
+each rank has a card of its own, else gloo), with the sharded minibatch
+shuffle forced, as JAX's CLI does. Every rank runs the iterations; rank 0
+alone logs, writes checkpoints (the env state collected from every rank)
+and the final model, and records videos. ``--resume`` loads the whole
+state on every rank and shards it.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
-
-MESH_NOT_PORTED = ("--mesh (data-parallel PPO) is not ported yet (ROADMAP.md, "
-                   "Queue 1 item 7)")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,7 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 params/updates)")
     p.add_argument("--mesh", action="store_true",
-                   help="data-parallel training over the visible devices (not ported)")
+                   help="data-parallel training over the ranks of torchrun: the env batch "
+                        "shards, parameters replicate, gradients all-reduce (also switches "
+                        "to the sharded minibatch shuffle)")
     p.add_argument("--log-dir", default="./logs")
     p.add_argument("--ckpt-dir", default="./checkpoints")
     p.add_argument("--resume", action="store_true",
@@ -72,17 +79,22 @@ def main(argv=None):
     import torch
 
     from gym2048_tpu_torch import interop
+    from gym2048_tpu_torch.parallel import mesh as pmesh
     from gym2048_tpu_torch.train import PPO, PPOConfig
     from gym2048_tpu_torch.utils.checkpoint import Checkpointer, load_model, save_model
     from gym2048_tpu_torch.utils.metrics import MetricsLogger
 
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
     run_name = args.run_name or f"ppo_{int(time.time())}"
-    device = torch.device(args.device)
-    print(f"torch {torch.__version__}, device {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    device, mesh = torch.device(args.device), None
+    if args.mesh:
+        pmesh.init_distributed(backend=pmesh.default_backend(device))
+        mesh = pmesh.make_mesh()
+        device = pmesh.rank_device(device)
+    rank0 = pmesh.data_rank(mesh) == 0
+    if rank0:
+        print(f"torch {torch.__version__}, device {device}"
+              + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
 
     cfg = PPOConfig(
         total_timesteps=args.total_timesteps, n_envs=args.n_envs, seed=args.seed,
@@ -93,27 +105,33 @@ def main(argv=None):
         residual_blocks=args.residual_blocks, illegal_move_reward=args.illegal_move_reward,
         log2_rewards=args.log2_rewards, reward_scale=args.reward_scale,
         mask_illegal=args.mask_illegal,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
-    ppo = PPO(cfg, device=device)
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        # data parallel needs the device-local shuffle, as in JAX's CLI
+        **({"shuffle_mode": "sharded"} if args.mesh else {}))
+    ppo = PPO(cfg, device=device, mesh=mesh)
     state = ppo.init_state()
 
     ckpt = Checkpointer(args.ckpt_dir) if args.save_interval > 0 else None
     if args.resume and ckpt is not None and ckpt.latest_step() is not None:
-        state = ckpt.restore(like=state)
-        print(f"Resumed from checkpoint step {state.update_idx}")
+        state = pmesh.shard_train_state(ckpt.restore(like=ppo.global_state(state)), mesh)
+        if rank0:
+            print(f"Resumed from checkpoint step {state.update_idx}")
     elif args.pretrained:
         variables, meta = load_model(args.pretrained)
         if meta.get("model") != "ActorCritic":
             raise ValueError(f"--pretrained needs an ActorCritic model, got meta {meta}")
         state.model.load_state_dict(interop.resnet_state_dict(variables))
-        print(f"Loaded pre-trained policy weights from {args.pretrained}")
+        if rank0:
+            print(f"Loaded pre-trained policy weights from {args.pretrained}")
+    if mesh is not None and rank0:
+        print(f"data-parallel training over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
-    logger = MetricsLogger(args.log_dir, run_name)
+    logger = MetricsLogger(args.log_dir, run_name) if rank0 else None
     last_video = {"t": 0}
 
     def callback(update: int, metrics: dict, state) -> None:
         timesteps = metrics["timesteps"]
-        if update % args.log_interval == 0:
+        if rank0 and update % args.log_interval == 0:
             logger.log(timesteps, {
                 "rollout/ep_rew_mean": metrics["ep_return_rolling"],
                 "rollout/ep_len_mean": metrics["ep_len_mean"],
@@ -130,12 +148,18 @@ def main(argv=None):
                   f"highest {metrics['highest_tile_rolling']:.0f} "
                   f"kl {metrics['approx_kl']:.4f}")
         if ckpt is not None and update % args.save_interval == 0:
-            ckpt.save(update, state)
-        if args.video_freq > 0 and timesteps - last_video["t"] >= args.video_freq:
+            whole = ppo.global_state(state)  # a collective: every rank takes part
+            if rank0:
+                ckpt.save(update, whole)
+        if rank0 and args.video_freq > 0 and timesteps - last_video["t"] >= args.video_freq:
             last_video["t"] = timesteps
             _record_video(state, run_name, timesteps)
 
     state = ppo.learn(state, callback=callback, log_interval=1)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    if not rank0:
+        return state
 
     final_path = f"ppo_model_final_{int(time.time())}.pkl"
     save_model(final_path, interop.resnet_variables(state.model),

@@ -34,22 +34,42 @@ model's initial weights, the env's resets and spawns, the actions (Gumbel
 max: the same law as ``jax.random.categorical``, another stream) and the
 minibatch permutations. A permutation can also be handed to
 :meth:`PPO._update_epochs`, which is how the tests replay JAX's.
+
+Data parallel (``PPO(config, mesh=...)``, the CLI's ``--mesh``): the same
+function as one process, as JAX's ``shard_train_state`` and ``jit`` give.
+Each of the mesh's ``data`` ranks steps its block of ``n_envs / ranks``
+envs. The generator is replicated: every rank draws the whole batch's
+uniforms (the Gumbel draws, the env's spawns, the sharded shuffle's
+``(T, n_envs)``) and keeps its own columns, so the rollout is the
+single-process rollout of the same seed. The shuffle must be
+``"sharded"``: its env-major flatten keeps each rank's share of a
+minibatch a contiguous slice of it. The loss terms are means over the
+global minibatch (each rank computes its share; the advantages are
+normalised with the global mean and standard deviation), BatchNorm takes
+the global minibatch's statistics (``models.resnet.sync_batch_norm``), the
+gradients are summed with ``all_reduce`` before the global-norm clip, and
+the metrics are reduced. With one rank no collective is issued, and the
+path is the single-process one bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gym2048_tpu_torch.core import rules
 from gym2048_tpu_torch.env import batched
 from gym2048_tpu_torch.env.batched import EnvConfig
-from gym2048_tpu_torch.models.resnet import ActorCritic, boards_to_model_input
+from gym2048_tpu_torch.models.resnet import (ActorCritic, boards_to_model_input,
+                                             sync_batch_norm)
 from gym2048_tpu_torch.ops import returns as returns_ops
+from gym2048_tpu_torch.parallel import mesh as pmesh
 
 _NEG = -1e9
 _TINY = torch.finfo(torch.float32).tiny
@@ -108,12 +128,15 @@ class PPOConfig:
 class Optimizer:
     """optax's ``chain(clip_by_global_norm(max_norm), adam(lr_fn, eps=1e-5))``
     over ``params`` (see the module docstring). ``count`` is the
-    schedule's step count."""
+    schedule's step count. With a process ``group`` the gradients are first
+    summed over its ranks (one ``all_reduce`` of them all)."""
 
-    def __init__(self, params, lr_fn: Callable[[int], float], max_norm: float):
+    def __init__(self, params, lr_fn: Callable[[int], float], max_norm: float,
+                 group=None):
         self.params = list(params)
         self.lr_fn = lr_fn
         self.max_norm = max_norm
+        self.group = group
         self.adam = torch.optim.Adam(self.params, lr=lr_fn(0), eps=1e-5)
         self.count = 0
 
@@ -121,6 +144,11 @@ class Optimizer:
         """Clip the parameters' gradients, take one Adam step at the
         schedule's learning rate, and clear the gradients."""
         grads = [p.grad for p in self.params]
+        if self.group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self.group)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
         norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         factor = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
         torch._foreach_mul_(grads, factor)
@@ -198,28 +226,51 @@ class UpdateBatch:
 
 def ppo_loss_terms(logits: torch.Tensor, value: torch.Tensor, action: torch.Tensor,
                    old_logprob: torch.Tensor, adv: torch.Tensor, ret: torch.Tensor,
-                   clip_coef: float):
+                   clip_coef: float, group=None, world: int = 1):
     """PPO loss math on raw policy outputs (SB3's semantics): advantages
     normalised per minibatch (population standard deviation), clipped
     surrogate, value MSE, and the entropy of the (possibly ``-1e9``-masked)
     categorical distribution, where ``p log p`` counts 0 below p = 1e-12.
-    Returns ``(policy_loss, value_loss, entropy, approx_kl, clip_frac)``."""
+    Returns ``(policy_loss, value_loss, entropy, approx_kl, clip_frac)``.
+
+    With a process ``group`` of ``world`` ranks, each holding an equal share
+    of the minibatch, the advantages are normalised with the whole
+    minibatch's mean and standard deviation, and each term is this rank's
+    share of the whole minibatch's mean (its sum over the ranks is the
+    mean): backpropagating each rank's share and summing the gradients over
+    the ranks gives the gradient of the mean."""
     log_probs = torch.log_softmax(logits, dim=-1)
     logprob = log_probs.gather(-1, action.long()[:, None])[:, 0]
     ratio = torch.exp(logprob - old_logprob)
-
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    pg1 = ratio * adv
-    pg2 = torch.clamp(ratio, 1 - clip_coef, 1 + clip_coef) * adv
-    policy_loss = -torch.minimum(pg1, pg2).mean()
-
-    value_loss = ((value - ret) ** 2).mean()
     probs = torch.exp(log_probs)
     plogp = torch.where(probs > 1e-12, probs * log_probs, 0.0)
-    entropy = -plogp.sum(-1).mean()
 
-    approx_kl = ((ratio - 1.0) - torch.log(ratio)).mean()
-    clip_frac = ((ratio - 1.0).abs() > clip_coef).float().mean()
+    if group is None:
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        mean = torch.mean
+    else:
+        n = adv.numel() * world
+
+        def total(x):
+            t = x.detach().sum()
+            dist.all_reduce(t, group=group)
+            return t
+
+        adv_mean = total(adv) / n
+        adv_std = (total((adv - adv_mean).square()) / n).sqrt()
+        adv = (adv - adv_mean) / (adv_std + 1e-8)
+
+        def mean(x):
+            return x.sum() / n
+    pg1 = ratio * adv
+    pg2 = torch.clamp(ratio, 1 - clip_coef, 1 + clip_coef) * adv
+    policy_loss = -mean(torch.minimum(pg1, pg2))
+
+    value_loss = mean((value - ret) ** 2)
+    entropy = -mean(plogp.sum(-1))
+
+    approx_kl = mean((ratio - 1.0) - torch.log(ratio))
+    clip_frac = mean(((ratio - 1.0).abs() > clip_coef).float())
     return policy_loss, value_loss, entropy, approx_kl, clip_frac
 
 
@@ -230,9 +281,20 @@ _AUX = ("loss", "policy_loss", "value_loss", "entropy", "approx_kl", "clip_frac"
 class PPO:
     """PPO trainer on ``device``. Construct, then ``state = init_state()``
     and loop ``state, metrics = train_iteration(state)``, or call
-    :meth:`learn` for the driver loop."""
+    :meth:`learn` for the driver loop. With a ``mesh``, the data-parallel
+    learner over its ``data`` axis (see the module docstring): every rank
+    constructs it and calls the same methods."""
 
-    def __init__(self, config: PPOConfig, device: str | torch.device = "cuda"):
+    def __init__(self, config: PPOConfig, device: str | torch.device = "cuda", mesh=None):
+        self.mesh = mesh
+        self.world, self.rank = pmesh.data_size(mesh), pmesh.data_rank(mesh)
+        if self.world > 1 and (config.shuffle_mode != "sharded"
+                               or config.n_envs % self.world):
+            raise ValueError(f"data-parallel PPO over {self.world} ranks needs "
+                             f"shuffle_mode='sharded' and n_envs divisible by the ranks")
+        self.group = mesh.get_group(pmesh.DATA_AXIS) if self.world > 1 else None
+        self.n_local = config.n_envs // self.world
+        self.cols = slice(self.rank * self.n_local, (self.rank + 1) * self.n_local)
         if config.shuffle_mode not in ("global", "sharded"):
             raise ValueError(f"shuffle_mode must be 'global' or 'sharded', got "
                              f"{config.shuffle_mode!r}")
@@ -254,18 +316,35 @@ class PPO:
 
     # ------------------------------------------------------------------ init
     def make_optimizer(self, model: ActorCritic) -> Optimizer:
-        return Optimizer(model.parameters(), self.lr_fn, self.cfg.max_grad_norm)
+        return Optimizer(model.parameters(), self.lr_fn, self.cfg.max_grad_norm, self.group)
 
     def init_state(self, generator: torch.Generator | None = None) -> TrainState:
         """A fresh state: ``n_envs`` reset envs and flax-initialised
-        weights, drawn from ``generator`` (default: seeded ``cfg.seed``)."""
+        weights, drawn from ``generator`` (default: seeded ``cfg.seed``);
+        with a mesh, this rank's (:func:`~gym2048_tpu_torch.parallel.mesh.
+        shard_train_state`)."""
         cfg = self.cfg
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         env_state = batched.reset(generator, cfg.n_envs, device=self.device)
         model = ActorCritic(cfg.filters, cfg.residual_blocks, cfg.compute_dtype,
                             self.device, generator)
-        return TrainState(model, self.make_optimizer(model), env_state, generator)
+        state = TrainState(model, self.make_optimizer(model), env_state, generator)
+        return pmesh.shard_train_state(state, self.mesh)
+
+    def global_state(self, state: TrainState) -> TrainState:
+        """``state`` with the whole env batch, collected from every rank (a
+        collective), sharing the rest: the layout a checkpoint holds.
+        ``shard_train_state`` of it is ``state`` again."""
+        return dataclasses.replace(
+            state, env_state=pmesh.gather_env_state(state.env_state, self.mesh))
+
+    def _uniform(self, generator: torch.Generator, shape: tuple[int, ...],
+                 axis: int = 0) -> torch.Tensor:
+        """``shape`` uniforms from the replicated ``generator``, the whole
+        batch's, and this rank's block of them along ``axis``."""
+        u = torch.rand(shape, generator=generator, device=self.device)
+        return u if self.world == 1 else u.narrow(axis, self.rank * self.n_local, self.n_local)
 
     # --------------------------------------------------------------- rollout
     def _policy(self, model: ActorCritic, board: torch.Tensor):
@@ -276,7 +355,7 @@ class PPO:
         """``n_steps`` env steps under the policy -> ``(Transition (T, B,
         ...), last_value (B,))``; advances ``state.env_state``."""
         cfg, dev, gen = self.cfg, self.device, state.generator
-        t_len, b = cfg.n_steps, cfg.n_envs
+        t_len, b = cfg.n_steps, self.n_local
         model = state.model.eval()
         traj = Transition(
             board=torch.empty((t_len, b, 4, 4), dtype=torch.int8, device=dev),
@@ -297,12 +376,13 @@ class PPO:
                 # one move_all serves both the policy mask and the env step
                 logits = torch.where(products[2], logits, _NEG)
             # Gumbel max over uniforms in [tiny, 1): jax.random.categorical's law
-            u = torch.rand((b, 4), generator=gen, device=dev).clamp_min(_TINY)
+            u = self._uniform(gen, (cfg.n_envs, 4)).clamp_min(_TINY)
             action = (logits - torch.log(-torch.log(u))).argmax(-1)
             logprob = torch.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
             traj.board[t] = env_state.board
             env_state, ts = batched.step_with_products(env_state, action, products,
-                                                       self.env_cfg, generator=gen)
+                                                       self.env_cfg,
+                                                       u=self._uniform(gen, (cfg.n_envs, 6)))
             traj.action[t] = action
             traj.logprob[t] = logprob
             traj.value[t] = value
@@ -321,12 +401,15 @@ class PPO:
         ``_AUX`` metrics stacked ``(6,)``, on the device."""
         cfg = self.cfg
         model = state.model.train()
-        logits, value = self._policy(model, mb.board)
+        with (sync_batch_norm(self.group, self.world) if self.group is not None
+              else contextlib.nullcontext()):
+            logits, value = self._policy(model, mb.board)
         if cfg.mask_illegal:
             _, _, legal = rules.move_all(mb.board)
             logits = torch.where(legal, logits, _NEG)
         policy_loss, value_loss, entropy, approx_kl, clip_frac = ppo_loss_terms(
-            logits, value, mb.action, mb.logprob, mb.adv, mb.ret, cfg.clip_coef)
+            logits, value, mb.action, mb.logprob, mb.adv, mb.ret, cfg.clip_coef,
+            self.group, self.world)
         loss = policy_loss - cfg.ent_coef * entropy + cfg.vf_coef * value_loss
         loss.backward()
         state.optimizer.step()
@@ -336,11 +419,11 @@ class PPO:
     def _permutation(self, generator: torch.Generator) -> torch.Tensor:
         """One epoch's shuffle: a permutation of the flat buffer
         (``"global"``), or per env column one of the time axis, ``(T, B)``
-        (``"sharded"``)."""
+        (``"sharded"``; with a mesh, this rank's columns of the whole
+        batch's)."""
         cfg = self.cfg
         if cfg.shuffle_mode == "sharded":
-            u = torch.rand((cfg.n_steps, cfg.n_envs), generator=generator, device=self.device)
-            return u.argsort(0)
+            return self._uniform(generator, (cfg.n_steps, cfg.n_envs), axis=1).argsort(0)
         return torch.randperm(cfg.rollout_size, generator=generator, device=self.device)
 
     def _minibatches(self, data: UpdateBatch, perm: torch.Tensor) -> list[UpdateBatch]:
@@ -359,7 +442,7 @@ class PPO:
             # flatten env-major: flat index = env * rows + t, as the JAX
             # module does to keep each shard's slice contiguous
             return [shuffled.map(lambda x: x[i * rows:(i + 1) * rows].transpose(0, 1)
-                                 .reshape((rows * cfg.n_envs,) + x.shape[2:]))
+                                 .reshape((rows * self.n_local,) + x.shape[2:]))
                     for i in range(cfg.n_minibatches)]
         flat = data.map(lambda x: x.reshape((cfg.rollout_size,) + x.shape[2:]))
         return [flat.map(lambda x: x[perm[i * cfg.batch_size:(i + 1) * cfg.batch_size]])
@@ -369,16 +452,21 @@ class PPO:
                        perms: list | None = None) -> dict:
         """``n_epochs`` of shuffled minibatch SGD over the ``(T, B)`` buffer;
         ``perms[e]``, when given, is epoch e's shuffle in the layout of
-        :meth:`_permutation`. Returns the metrics' means over every step."""
+        :meth:`_permutation` (with a mesh, the whole batch's: this rank takes
+        its columns). Returns the metrics' means over every step."""
         cfg = self.cfg
         aux = []
         for epoch in range(cfg.n_epochs):
-            perm = (self._permutation(state.generator) if perms is None
-                    else torch.as_tensor(np.array(perms[epoch], copy=True)))
+            if perms is None:
+                perm = self._permutation(state.generator)
+            else:
+                perm = torch.as_tensor(np.array(perms[epoch], copy=True))
+                if self.world > 1:
+                    perm = perm[:, self.cols]
             for mb in self._minibatches(data, perm):
                 aux.append(self._sgd_step(state, mb))
         state.model.eval()
-        means = torch.stack(aux).mean(0)
+        means = pmesh.all_reduce(torch.stack(aux).mean(0), self.mesh)
         return dict(zip(_AUX, means))
 
     # ------------------------------------------------------------- iteration
@@ -401,15 +489,26 @@ class PPO:
 
         # episode statistics of the rollout (SB3's ep_info buffer)
         done_f = traj.done.float()
-        n_episodes = done_f.sum()
+        if self.world == 1:
+            n_episodes = done_f.sum()
+            sums = ((traj.score * done_f).sum(), (traj.ep_len.float() * done_f).sum(),
+                    (traj.highest.float() * done_f).sum())
+            highest_max, reward_per_step = traj.highest.max().float(), traj.reward.mean()
+        else:
+            totals = pmesh.all_reduce(torch.stack([
+                done_f.sum(), (traj.score * done_f).sum(), (traj.ep_len.float() * done_f).sum(),
+                (traj.highest.float() * done_f).sum(), traj.reward.sum()]), self.mesh)
+            n_episodes, sums = totals[0], totals[1:4]
+            reward_per_step = totals[4] / (cfg.n_steps * cfg.n_envs)
+            highest_max = pmesh.all_reduce(traj.highest.max().float(), self.mesh, "max")
         safe = n_episodes.clamp_min(1.0)
         metrics.update(
             n_episodes=n_episodes,
-            ep_return_mean=(traj.score * done_f).sum() / safe,
-            ep_len_mean=(traj.ep_len.float() * done_f).sum() / safe,
-            highest_tile_mean=(traj.highest.float() * done_f).sum() / safe,
-            highest_tile_max=traj.highest.max().float(),
-            reward_per_step=traj.reward.mean(),
+            ep_return_mean=sums[0] / safe,
+            ep_len_mean=sums[1] / safe,
+            highest_tile_mean=sums[2] / safe,
+            highest_tile_max=highest_max,
+            reward_per_step=reward_per_step,
         )
         state.update_idx += 1
         return state, metrics
@@ -422,7 +521,8 @@ class PPO:
         metrics)`` or, if it takes a third parameter, ``callback(update,
         metrics, state)``, with the metrics as host floats plus
         ``timesteps`` and the rolling episode statistics; without one, every
-        ``log_interval``-th iteration prints a line."""
+        ``log_interval``-th iteration prints a line (on rank 0 alone with a
+        mesh; a callback is called on every rank, with the same metrics)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
@@ -447,10 +547,11 @@ class PPO:
                 host["ep_return_rolling"] = rolling["ep_return"]
                 host["highest_tile_rolling"] = rolling["highest"]
                 if callback is None:
-                    print(f"update {update + 1}/{cfg.n_updates} steps {host['timesteps']} "
-                          f"ep_rew {host['ep_return_mean']:.1f} "
-                          f"highest {host['highest_tile_mean']:.0f} "
-                          f"kl {host['approx_kl']:.4f}")
+                    if self.rank == 0:
+                        print(f"update {update + 1}/{cfg.n_updates} steps {host['timesteps']} "
+                              f"ep_rew {host['ep_return_mean']:.1f} "
+                              f"highest {host['highest_tile_mean']:.0f} "
+                              f"kl {host['approx_kl']:.4f}")
                 elif wants_state:
                     callback(update + 1, host, state)
                 else:

@@ -34,18 +34,21 @@ step body takes them as an argument, so the body can be fed the numbers
 JAX drew. The steps of a chunk are a Python loop with no host sync;
 :meth:`TDTrainer.learn` syncs once per logged chunk.
 
-Not ported here: the data-parallel chunk (``make_sharded_chunk``,
-``shard_td_state``, ``--sharded``); each raises and names its item in
-``ROADMAP.md``.
+Data parallel (:meth:`TDTrainer.make_sharded_chunk`, ``learn(mesh=...)``,
+``--sharded``): chunk-synchronous local learners over the ``data`` axis of
+a :mod:`gym2048_tpu_torch.parallel` mesh, one table merge per chunk, as in
+JAX; see :class:`ShardedChunk`.
 
 Run: ``python -m gym2048_tpu_torch.train.td`` (the small net) or ``--arch
 4x6 --tc --alpha 1 --alpha-final 1 --init-value 0`` on the card, ``--device
-cpu`` on the CPU.
+cpu`` on the CPU; data parallel over N ranks with ``torchrun --standalone
+--nproc-per-node N -m gym2048_tpu_torch.train.td --sharded ...``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import pickle
 import time
@@ -58,10 +61,8 @@ from gym2048_tpu_torch.core import rules
 from gym2048_tpu_torch.env.batched import _fresh_boards
 from gym2048_tpu_torch.models import ntuple, ntuple_big
 from gym2048_tpu_torch.models.ntuple import _tc_combine, stage_of_batch
+from gym2048_tpu_torch.parallel import mesh as pmesh
 from gym2048_tpu_torch.utils.checkpoint import load_model, save_model
-
-SHARDED_NOT_PORTED = ("data-parallel TD training is not ported yet (ROADMAP.md, "
-                      "Queue 1 item 7)")
 
 _PENDING = ("tc_ps", "tc_pa", "tc_pc")  # delayed-TC sums, |sums|, counts
 _SYNC_EVERY = 64  # play_greedy's moves between host checks for a live game
@@ -371,8 +372,11 @@ class TDTrainer:
         }
         return new_state, metrics
 
-    def make_sharded_chunk(self, mesh):
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+    def make_sharded_chunk(self, mesh) -> ShardedChunk:
+        """Chunk-synchronous data-parallel TD over the ``data`` axis of
+        ``mesh``: a :class:`ShardedChunk`, called as ``fn(state, alpha) ->
+        (state, metrics)`` on a :func:`shard_td_state` state."""
+        return ShardedChunk(self, mesh)
 
     def learn(self, state: dict | None = None, log_every: int = 50, log_fn=print,
               ckpt_path=None, ckpt_every: int = 0, start_chunk: int = 0,
@@ -383,12 +387,23 @@ class TDTrainer:
         resumes bit-continuously from it (pass the loaded state and
         ``start_chunk``; alpha's schedule follows from the chunk counter).
         ``max_chunks`` bounds the chunks of this call. Returns ``(state,
-        history)``."""
-        if mesh is not None:
-            raise NotImplementedError(SHARDED_NOT_PORTED)
+        history)``.
+
+        ``mesh`` switches to data-parallel training: every rank passes the
+        same whole state (or None), which :func:`shard_td_state` splits, and
+        the chunks run through :meth:`make_sharded_chunk`. The state
+        returned is this rank's. A checkpoint collects the sharded leaves
+        from every rank (:func:`gather_td_state`) and rank 0 writes it;
+        only rank 0 logs."""
         cfg = self.cfg
         if state is None:
             state = self.init_state()
+        chunk_fn = self.train_chunk
+        if mesh is not None:
+            state = shard_td_state(state, mesh)
+            chunk_fn = self.make_sharded_chunk(mesh)
+            if pmesh.data_rank(mesh) != 0:
+                log_fn = None
         steps_per_chunk = cfg.n_envs * cfg.chunk_steps
         n_chunks = -(-cfg.total_steps // steps_per_chunk)  # ceil
         if log_fn is not None and n_chunks * steps_per_chunk != cfg.total_steps:
@@ -400,9 +415,11 @@ class TDTrainer:
         for c in range(start_chunk, stop):
             frac = c / max(n_chunks - 1, 1)
             alpha = cfg.alpha + (cfg.alpha_final - cfg.alpha) * frac
-            state, metrics = self.train_chunk(state, alpha)
+            state, metrics = chunk_fn(state, alpha)
             if ckpt_path and ckpt_every and ((c + 1) % ckpt_every == 0 or c + 1 == stop):
-                save_train_state(ckpt_path, state, cfg, chunks_done=c + 1)
+                whole = gather_td_state(state, mesh)
+                if pmesh.data_rank(mesh) == 0:
+                    save_train_state(ckpt_path, whole, cfg, chunks_done=c + 1)
             if (c + 1) % log_every == 0 or c + 1 == stop:
                 m = {k: float(v) for k, v in metrics.items()}  # the host sync
                 entry = TDLogEntry(
@@ -422,8 +439,131 @@ class TDTrainer:
         return state, history
 
 
+# state keys whose leading axis is the env batch (sharded over ``data``); the
+# carousel reservoirs shard on their slot axis; everything else (the table,
+# the TC accumulators, the generator) replicates. Selected by KEY, not by
+# shape: a replicated leaf can happen to have the batch's length.
+_BATCH_KEYS = frozenset({"boards", "score", "prev_after", "prev_v", "prev_valid"})
+_SLOT_KEYS = frozenset({"car_boards", "car_filled"})
+# the additive leaves that the sharded chunk merges
+_MERGED = ("table", "tc_e", "tc_a")
+
+
 def shard_td_state(state: dict, mesh) -> dict:
-    raise NotImplementedError(SHARDED_NOT_PORTED)
+    """This rank's part of a TD train state: its block of the env batch
+    (``boards``, ``score``, ``prev_*``) and of the carousel reservoirs'
+    slots; the table, the TC accumulators and the generator replicated."""
+    def place(k, v):
+        if k in _BATCH_KEYS:
+            return pmesh.shard_batch(v, mesh)
+        if k in _SLOT_KEYS:
+            return pmesh.shard_batch(v, mesh, axis=1)
+        return pmesh.replicate(v, mesh)
+    return {k: place(k, v) for k, v in state.items()}
+
+
+def gather_td_state(state: dict, mesh) -> dict:
+    """The inverse of :func:`shard_td_state`: the whole state, collected
+    from every rank (a collective; the state itself on a one-rank axis)."""
+    def collect(k, v):
+        if k in _BATCH_KEYS:
+            return pmesh.gather_batch(v, mesh)
+        if k in _SLOT_KEYS:
+            return pmesh.gather_batch(v, mesh, axis=1)
+        return v
+    return {k: collect(k, v) for k, v in state.items()}
+
+
+def _derived_seed(generator: torch.Generator, tag: bytes) -> int:
+    """A 63-bit seed from the SHA-256 of ``generator``'s state and ``tag``
+    (no device sync: a CUDA generator's state lives on the host)."""
+    digest = hashlib.sha256(generator.get_state().numpy().tobytes() + tag).digest()
+    return int.from_bytes(digest[:8], "little") >> 1
+
+
+class ShardedChunk:
+    """One chunk of chunk-synchronous data-parallel TD (the JAX package's
+    ``make_sharded_chunk``): each rank runs the whole chunk's steps locally,
+    on its block of the envs against its own copy of the table, and then
+    the chunk's changes of the additive leaves merge: ``table``, ``tc_e`` and
+    ``tc_a`` each become ``t0 + sum over ranks of (new - t0)``. Episodes and
+    the finished games' score sum over the ranks, ``highest_exp`` is the
+    max. One merge per chunk: within a chunk the ranks do not see each
+    other's updates. The carousel reservoirs are sharded on the slot axis,
+    each rank's fed by its own envs (reservoir writes are not additive), so
+    ``n_envs`` and ``carousel_slots`` must divide over the ranks.
+
+    Randomness (the counterpart of JAX folding the axis index into the
+    chunk key): the state's generator is replicated. At the start of a
+    chunk, rank r draws its chunk from a fresh generator on the same device
+    seeded with the first 8 bytes (little-endian, shifted right by one) of
+    ``sha256(state generator's get_state() bytes + b"rank %d" % r)``;
+    after the merge the state's generator is reseeded the same way from
+    ``b"next"``, identically on every rank, so chunks chain.
+
+    On a one-rank axis the call is :meth:`TDTrainer.train_chunk` itself:
+    no derivation, no merge, the same result bit for bit.
+
+    A call is :meth:`local`, :meth:`reduce` (the merge's one collective)
+    and :meth:`merge`. A test may run the ranks in turn in one process:
+    :meth:`local` for each, the sums (and the max) of their parts taken
+    over them in place of :meth:`reduce`, then :meth:`merge` for each."""
+
+    def __init__(self, trainer: TDTrainer, mesh):
+        cfg = trainer.cfg
+        self.trainer = trainer
+        self.mesh = mesh
+        self.world = pmesh.data_size(mesh)
+        self.rank = pmesh.data_rank(mesh)
+        if cfg.n_envs % self.world:
+            raise ValueError(f"n_envs {cfg.n_envs} does not split over {self.world} ranks")
+        if cfg.carousel and cfg.carousel_slots % self.world:
+            raise ValueError(f"carousel_slots {cfg.carousel_slots} do not split over "
+                             f"{self.world} ranks")
+
+    def reduce(self, parts: dict) -> dict:
+        """``parts`` (``table``/``tc_e``/``tc_a``: this rank's changes;
+        ``episodes``, ``done_score``: sums; ``highest``: a max) reduced in
+        place over the mesh's ``data`` axis."""
+        return {k: pmesh.all_reduce(v, self.mesh, "max" if k == "highest" else "sum")
+                for k, v in parts.items()}
+
+    def local(self, state: dict, alpha) -> tuple[dict, dict]:
+        """This rank's chunk from its part of the state -> ``(new local
+        state, parts)``, ``parts`` as :meth:`reduce` takes them."""
+        alpha = torch.as_tensor(alpha, dtype=torch.float32)
+        local = dict(state)
+        gen = state["generator"]
+        local["generator"] = torch.Generator(device=gen.device).manual_seed(
+            _derived_seed(gen, b"rank %d" % self.rank))
+        new, (n_done, done_score, highest) = self.trainer._scan_steps(
+            local, alpha, self.trainer.cfg.chunk_steps)
+        parts = {k: new[k] - state[k] for k in _MERGED if k in state}
+        parts.update(episodes=n_done.sum(), done_score=done_score.sum(),
+                     highest=highest.max().to(torch.int32))
+        return new, parts
+
+    def merge(self, state: dict, new: dict, totals: dict) -> tuple[dict, dict]:
+        """The merged state and the chunk's metrics from this rank's chunk
+        ``new`` and the reduced ``totals``; advances the state's generator."""
+        new = dict(new)
+        for k in _MERGED:
+            if k in state:
+                new[k] = state[k] + totals[k]
+        gen = state["generator"]
+        gen.manual_seed(_derived_seed(gen, b"next"))
+        new["generator"] = gen
+        episodes = totals["episodes"]
+        metrics = {"episodes": episodes,
+                   "ep_score_mean": totals["done_score"] / episodes.clamp(min=1.0),
+                   "highest_exp": totals["highest"].to(torch.int32)}
+        return new, metrics
+
+    def __call__(self, state: dict, alpha):
+        if self.world == 1:
+            return self.trainer.train_chunk(state, alpha)
+        new, parts = self.local(state, alpha)
+        return self.merge(state, new, self.reduce(parts))
 
 
 TRAIN_STATE_FORMAT = "td_train_state_v1"
@@ -580,7 +720,8 @@ def main(argv: list[str] | None = None) -> None:
                    "overwrite; resumable with --resume)")
     p.add_argument("--ckpt-every", type=int, default=50, help="chunks between --ckpt saves")
     p.add_argument("--sharded", action="store_true",
-                   help="data-parallel training (not ported yet)")
+                   help="chunk-synchronous data-parallel training over the ranks of "
+                   "torchrun (one table merge per chunk); rank 0 logs, saves and evaluates")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu for the plain path)")
     args = p.parse_args(argv)
@@ -588,8 +729,12 @@ def main(argv: list[str] | None = None) -> None:
         p.error('--update-impl/--value-impl "rows" applies to the big-net architectures '
                 'only (--arch 4x6/5x6/4x6_4x4); the small net supports auto/scatter/mxu '
                 'updates and auto/gather/mxu/mxu_bf16 values')
+    mesh, device = None, torch.device(args.device)
     if args.sharded:
-        p.error(SHARDED_NOT_PORTED)
+        pmesh.init_distributed(backend=pmesh.default_backend(device))
+        mesh = pmesh.make_mesh()
+        device = pmesh.rank_device(device)
+    rank0 = pmesh.data_rank(mesh) == 0
 
     cfg = TDConfig(
         total_steps=args.steps, n_envs=args.envs, alpha=args.alpha,
@@ -600,25 +745,30 @@ def main(argv: list[str] | None = None) -> None:
         thresholds=tuple(args.thresholds), tc_every=args.tc_every,
         carousel=args.carousel, carousel_slots=args.carousel_slots,
     )
-    trainer = TDTrainer(cfg, device=args.device)
+    trainer = TDTrainer(cfg, device=device)
     state = trainer.init_state()
     start_chunk = 0
     if args.resume:
         if is_train_state(args.resume):
-            state, meta = load_train_state(args.resume, device=args.device)
+            state, meta = load_train_state(args.resume, device=device)
             start_chunk = meta["chunks_done"]
-            print(f"resumed full train state at chunk {start_chunk} "
-                  f"({start_chunk * cfg.n_envs * cfg.chunk_steps} steps)")
+            if rank0:
+                print(f"resumed full train state at chunk {start_chunk} "
+                      f"({start_chunk * cfg.n_envs * cfg.chunk_steps} steps)")
         else:
             variables, _ = load_model(args.resume)
-            state["table"] = interop.table_from_numpy(variables["table"], args.device)
+            state["table"] = interop.table_from_numpy(variables["table"], device)
     state, history = trainer.learn(state, ckpt_path=args.ckpt, ckpt_every=args.ckpt_every,
-                                   start_chunk=start_chunk)
+                                   start_chunk=start_chunk, mesh=mesh)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    if not rank0:
+        return
     save_model(args.output, {"table": state["table"]},
                meta={"config": dataclasses.asdict(cfg)})
 
     ev = play_greedy(state["table"], args.eval_episodes,
-                     torch.Generator(device=args.device).manual_seed(args.seed + 1),
+                     torch.Generator(device=device).manual_seed(args.seed + 1),
                      net=trainer._net)
     dist = collections.Counter(e["highest"] for e in ev["Episodes"])
     print(json.dumps({

@@ -1,4 +1,5 @@
 """Utilities (counterpart of ``gym2048_tpu.utils``): checkpoints, model
 files and table artifacts (``checkpoint``), the metrics logger
-(``metrics``), board rendering (``render``) and episode GIFs (``video``).
-``profiler`` and ``debug`` are not ported yet (ROADMAP.md, Queue 1)."""
+(``metrics``), board rendering (``render``), episode GIFs (``video``),
+``torch.profiler`` traces and a steps/s meter (``profiler``), and board
+checks, NaN guards and rollout fingerprints (``debug``)."""

@@ -8,11 +8,13 @@
   is a JAX library.
 * :func:`save_model` and :func:`load_model`: one-shot model files, a pickle
   of numpy arrays in the JAX package's layout, which both packages read.
-* :func:`load_array_bf16`: the ``bf16_zlib_v1`` artifacts of
-  ``save_array_bf16``, such as the committed n-tuple tables. bf16 is the
-  top half of an f32, so the artifact is decoded without ``ml_dtypes``:
-  each 16-bit word shifted into the high half of a 32-bit word is the f32
-  it stands for.
+* :func:`save_array_bf16` and :func:`load_array_bf16`: the
+  ``bf16_zlib_v1`` artifacts, such as the committed n-tuple tables, written
+  byte for byte as the JAX package writes them. bf16 is the top half of an
+  f32, so they are encoded and decoded without ``ml_dtypes``: an f32 rounds
+  to its top 16 bits to nearest, ties to even (:func:`f32_to_bf16_bits`),
+  and each 16-bit word shifted into the high half of a 32-bit word is the
+  f32 it stands for.
 """
 
 from __future__ import annotations
@@ -182,6 +184,58 @@ def load_model(path: str | Path) -> tuple[Any, dict]:
     with open(path, "rb") as f:
         blob = pickle.load(f)
     return blob["variables"], blob.get("meta", {})
+
+
+def f32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 values -> the uint16 bit patterns of their bfloat16 rounding,
+    to nearest with ties to even, as ``ml_dtypes`` (Eigen) rounds: ±inf
+    stays ±inf, a finite value past the largest bf16 becomes ±inf, and a
+    NaN becomes the quiet NaN of its sign (0x7FC0 or 0xFFC0)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    bias = np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    with np.errstate(over="ignore"):  # only NaN patterns wrap; they are replaced
+        bits = ((u + bias) >> np.uint32(16)).astype(np.uint16)
+    nan = np.where(u >> np.uint32(31), np.uint16(0xFFC0), np.uint16(0x7FC0))
+    return np.where(np.isnan(a), nan, bits)
+
+
+def save_array_bf16(prefix: str | Path, arr, meta: dict | None = None,
+                    part_bytes: int = 90_000_000, delta_stages: int = 1) -> list[Path]:
+    """Write a large f32 array (a tensor or an array) as the JAX package's
+    ``bf16_zlib_v1`` artifact: cast to bfloat16 (:func:`f32_to_bf16_bits`),
+    zlib level 6, split into parts below ``part_bytes``. With
+    ``delta_stages > 1`` the array is that many equal-size stages, and the
+    bf16 bits of stages 1.. are XORed with stage 0's (tiled copies of one
+    stage then compress to almost nothing). Writes ``<prefix>.meta.json``
+    and ``<prefix>.p00``, ``.p01``, ... and returns their paths; the files
+    equal the JAX package's byte for byte for the same arguments."""
+    prefix = Path(prefix)
+    prefix.parent.mkdir(parents=True, exist_ok=True)
+    a = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    u = f32_to_bf16_bits(a)
+    if delta_stages > 1:
+        u = u.reshape(delta_stages, -1)
+        u = np.concatenate([u[:1], u[1:] ^ u[:1]])
+    raw = u.tobytes()
+    comp = zlib.compress(raw, level=6)
+    parts = [comp[i: i + part_bytes] for i in range(0, len(comp), part_bytes)] or [b""]
+    paths = []
+    for i, blob in enumerate(parts):
+        p = prefix.with_name(prefix.name + f".p{i:02d}")
+        p.write_bytes(blob)
+        paths.append(p)
+    header = {
+        "format": "bf16_zlib_v1",
+        "shape": list(a.shape),
+        "source_dtype": str(a.dtype),
+        "n_parts": len(parts),
+        "raw_bytes": len(raw),
+        "delta_stages": delta_stages,
+        "meta": meta or {},
+    }
+    hp = prefix.with_name(prefix.name + ".meta.json")
+    hp.write_text(json.dumps(header, indent=1))
+    return [hp] + paths
 
 
 def bf16_bits_to_f32(u: np.ndarray) -> np.ndarray:

@@ -1,8 +1,11 @@
 """The port's checkpoints and loaders (gym2048_tpu_torch.utils.checkpoint):
 the bf16 artifact decodes bit for bit as JAX's ``load_array_bf16`` decodes
-it (which uses ml_dtypes; the port does not), a ``save_model`` pickle loads
+it (which uses ml_dtypes; the port does not) and the port writes it byte
+for byte as JAX's ``save_array_bf16`` does, a ``save_model`` pickle loads
 back, and the ``Checkpointer`` (the JAX layout ``<root>/<step>/``, without
 Orbax) saves, prunes and restores a whole PPO train state exactly."""
+
+import json
 
 import numpy as np
 import pytest
@@ -142,3 +145,48 @@ def test_generator_state_from_another_device_type_seeds_deterministically():
         draws.append(torch.rand(4, generator=g))
     assert torch.equal(draws[0], draws[1])
     assert not torch.equal(draws[0], torch.rand(4, generator=torch.Generator().manual_seed(0)))
+
+
+def _artifact_bytes(prefix) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(prefix.parent.iterdir())
+            if p.name.startswith(prefix.name + ".")}
+
+
+@pytest.mark.parametrize("delta_stages, part_bytes", [(1, 90_000_000), (1, 700), (2, 500)])
+def test_save_array_bf16_files_equal_jax(tmp_path, delta_stages, part_bytes):
+    """The port's artifact files equal the JAX package's byte for byte: one
+    part and several, stages XORed, NaN of either sign, +-inf, values past
+    bf16's largest, denormals, and every halfway case (ties to even)."""
+    rng = np.random.default_rng(7 + delta_stages)
+    stage = (rng.normal(size=4000) * 1e3).astype(np.float32)
+    a = np.concatenate([stage] * delta_stages)
+    a[::5] += 0.5  # stage 1 differs from stage 0 in some entries
+    halfway = (rng.integers(0, 1 << 16, 64, dtype=np.uint32) << 16 | 0x8000).view(np.float32)
+    a[:64] = halfway  # exactly between two bf16 values: to the even one
+    a[64:76] = [np.nan, -np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, 1e-40, -1e-45, 0.0, -0.0,
+                np.float32(1.00390625), np.float32(1.01171875)]
+    a[76] = np.uint32(0xFFC00001).view(np.float32)  # a negative NaN with a payload
+    for pkg, base in (("jax", jck), ("port", tck)):
+        (tmp_path / pkg).mkdir()
+        base.save_array_bf16(tmp_path / pkg / "table", a, meta={"arch": "4x6"},
+                             part_bytes=part_bytes, delta_stages=delta_stages)
+    want, got = _artifact_bytes(tmp_path / "jax" / "table"), _artifact_bytes(
+        tmp_path / "port" / "table")
+    assert want == got
+    n_parts = json.loads(got["table.meta.json"])["n_parts"]
+    assert len(got) == 1 + n_parts and (n_parts > 1) == (part_bytes < 1e6)
+    back, meta = tck.load_array_bf16(tmp_path / "port" / "table")
+    assert meta == {"arch": "4x6"} and back.shape == a.shape
+    # the round trip is the rounding: within half a bf16 step, NaN kept
+    finite = np.isfinite(a) & (np.abs(a) < 3.38e38)
+    assert np.all(np.abs(back[finite] - a[finite]) <= np.abs(a[finite]) * 2.0 ** -8 + 1e-38)
+    assert np.isnan(back[64:66]).all() and np.isnan(back[76])
+    assert list(back[66:68]) == [np.inf, -np.inf]
+
+
+def test_save_array_bf16_takes_a_tensor(tmp_path):
+    a = torch.arange(-8, 8, dtype=torch.float32) / 3
+    paths = tck.save_array_bf16(tmp_path / "t", a)
+    assert [p.name for p in paths] == ["t.meta.json", "t.p00"]
+    back, _ = jck.load_array_bf16(tmp_path / "t")
+    np.testing.assert_array_equal(back, a.to(torch.bfloat16).float().numpy())

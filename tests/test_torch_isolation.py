@@ -28,7 +28,12 @@ HOST_SIDE = {
     "gym2048_tpu_torch.utils.video", "gym2048_tpu_torch.tools",
     *(f"gym2048_tpu_torch.tools.{name}" for name in (
         "selfplay", "pretrain_bc", "ppo", "evaluate", "train", "merge_data", "augment_data",
-        "hflip_data", "distribute_data", "add_rewards")),
+        "hflip_data", "distribute_data", "add_rewards", "convert_model", "gather")),
+}
+# data parallel and the debugging utilities
+PARALLEL_AND_UTILS = {
+    "gym2048_tpu_torch.parallel", "gym2048_tpu_torch.parallel.mesh",
+    "gym2048_tpu_torch.utils.debug", "gym2048_tpu_torch.utils.profiler",
 }
 GYMNASIUM_MODULES = {"gym2048_tpu_torch.env.registration", "gym2048_tpu_torch.env.vector"}
 OPTIONAL = ("gymnasium", "orbax", "ml_dtypes", "pygame", "matplotlib", "PIL", "tensorboard")
@@ -50,7 +55,8 @@ def test_port_modules_are_found():
             "gym2048_tpu_torch.ops.returns", "gym2048_tpu_torch.models.resnet",
             "gym2048_tpu_torch.entry", "gym2048_tpu_torch.train.ppo",
             "gym2048_tpu_torch.train.bc", "gym2048_tpu_torch.train.eval",
-            "gym2048_tpu_torch.models", *HOST_SIDE, *GYMNASIUM_MODULES} <= set(PORT_MODULES)
+            "gym2048_tpu_torch.models", *HOST_SIDE, *GYMNASIUM_MODULES,
+            *PARALLEL_AND_UTILS} <= set(PORT_MODULES)
 
 
 def test_imports_without_jax_or_the_jax_package():

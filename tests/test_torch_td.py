@@ -454,8 +454,7 @@ def test_scan_steps_leaves_no_pending_buffers():
 
 
 def test_trainer_checks_match_jax():
-    """The checks of JAX's TDTrainer, big arch and small, as ValueError;
-    the parts not ported raise and name their ROADMAP.md item."""
+    """The checks of JAX's TDTrainer, big arch and small, as ValueError."""
     for bad in (dict(tc_every=4, tc=False), dict(tc_every=4, tc=True, chunk_steps=10),
                 dict(tc_every=4, tc=True, update_impl="rows"),
                 dict(carousel=0.5, thresholds=()), dict(carousel=1.5)):
@@ -474,11 +473,6 @@ def test_trainer_checks_match_jax():
     for impl in ("gather", "mxu", "mxu_bf16"):
         assert ttd.TDTrainer(ttd.TDConfig(value_impl=impl, update_impl="mxu"),
                              device="cpu")._small.value_impl == impl
-    tr = ttd.TDTrainer(ttd.TDConfig(**BASE), device="cpu")
-    for call in (lambda: tr.make_sharded_chunk(None), lambda: ttd.shard_td_state({}, None),
-                 lambda: tr.learn(mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            call()
     assert [f.name for f in dataclasses.fields(ttd.TDConfig)] == [
         f.name for f in dataclasses.fields(jtd.TDConfig)]
     assert ttd.TDConfig() == ttd.TDConfig(**dataclasses.asdict(jtd.TDConfig()))
@@ -578,12 +572,24 @@ def test_cli_on_the_cpu_writes_a_table(tmp_path, capsys):
     assert "resumed full train state at chunk 2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags, item", [(["--sharded"], "Queue 1 item 7"),
-                                         (["--arch", "4x6", "--sharded"], "Queue 1 item 7")])
-def test_cli_names_what_is_not_ported(flags, item, capsys):
-    with pytest.raises(SystemExit):
-        ttd.main(flags + ["--device", "cpu"])
-    assert item in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [[], ["--arch", "4x6", "--n-vals", "4", "--tc"]])
+def test_cli_sharded_on_one_rank(flags, tmp_path, monkeypatch, capsys):
+    """``--sharded`` with no coordinator: a warning, one rank, and the table
+    of the run without it, bit for bit (data parallel over real ranks:
+    tests/test_torch_parallel.py)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    args = flags + ["--envs", "16", "--chunk-steps", "4", "--steps", "128", "--alpha", "1",
+                    "--alpha-final", "1", "--init-value", "0", "--eval-episodes", "2",
+                    "--device", "cpu"]
+    ttd.main(args + ["--output", str(tmp_path / "a.pkl")])
+    with pytest.warns(UserWarning, match="no coordinator configured"):
+        ttd.main(args + ["--output", str(tmp_path / "b.pkl"), "--sharded"])
+    a, b = (tck.load_model(tmp_path / f)[0]["table"] for f in ("a.pkl", "b.pkl"))
+    assert_bits(b, a)
+    outs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert len(outs) == 2 and outs[0]["Average score"] == outs[1]["Average score"]
 
 
 def test_learning_beats_random_play():

@@ -238,10 +238,25 @@ def test_ppo_resume_equals_a_straight_run(tmp_path, monkeypatch):
     assert len(open("logs/r.jsonl").read().splitlines()) == 3
 
 
-def test_ppo_mesh_names_its_queue_item(tmp_path, monkeypatch):
+def test_ppo_mesh_runs_on_one_rank(tmp_path, monkeypatch):
+    """``--mesh`` with no coordinator: a warning, one rank, the sharded
+    shuffle forced; the state is the one-process learner's of that config
+    bit for bit (data parallel over real ranks: tests/test_torch_parallel.py)."""
+    from gym2048_tpu_torch.train import ppo as ppo_learner
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ppo.main([*PPO_TINY, "--mesh"])
+    with pytest.warns(UserWarning, match="no coordinator configured"):
+        state = ppo.main([*PPO_TINY, "--total-timesteps", "128", "--save-interval", "1",
+                          "--video-freq", "0", "--run-name", "m", "--mesh"])
+    assert state.update_idx == 1 and Checkpointer("checkpoints").all_steps() == [1]
+    trainer = ppo_learner.PPO(ppo_learner.PPOConfig(
+        total_timesteps=128, n_envs=16, n_steps=8, batch_size=32, n_epochs=1, filters=8,
+        residual_blocks=1, shuffle_mode="sharded"), device="cpu")
+    want, _ = trainer.train_iteration(trainer.init_state())
+    got, ref = state.model.state_dict(), want.model.state_dict()
+    assert all(torch.equal(got[k], ref[k]) for k in ref)
 
 
 def test_ppo_video_freq_writes_a_gif(tmp_path, monkeypatch):
