@@ -67,6 +67,15 @@ from the ranks' local chunks) and a PPO iteration at the production shape
 fixtures into the port's models on the card, a ``profiler.trace`` that
 names the gather kernel, the debug checks, and a bf16 table artifact.
 
+The top-level entry points (phases 23-25): the port's headline bench, ``python
+-m gym2048_tpu_torch.bench``, run as a user runs it in a process of its own
+(path "bench", right after the rollout's timing, whose rate its headline
+must match; phases 15d, 17d and 19b take the rates of root bench.py's
+configs from its line instead of timing them again); ``dryrun_multichip``
+and the scaling bench on one NCCL rank in this process (paths "dryrun" and
+"scaling") and as two gloo ranks sharing the card, started as ``torchrun``
+starts them.
+
 Before the paths, the single-step kernels, and the rollout for 32 steps,
 are held bit for bit against their plain versions on 65,536 boards of
 eight families (random, exponents 15-17, dead, full with merges only, one
@@ -91,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -163,7 +173,18 @@ PATHS = {
     "ppo": (),  # the CNN, PPO's env and the optimiser: plain PyTorch, no kernel of ours
     "shell": (),  # the CLIs (phase 20): the same device code as "ppo", and the host
     "td dp": ("gather_values",),  # learn(mesh=...) on one rank over NCCL (phase 21a)
+    # the top-level entry points (phases 23-25): the port's bench as a subprocess
+    # (the headline rollout, and a lookup each TD step), the dry run and the
+    # scaling bench on one NCCL rank here (a lookup each TD step)
+    "bench": ("fused_rollout", "gather_values"),
+    "dryrun": ("gather_values",),
+    "scaling": ("gather_values",),
 }
+# the path whose launch counts stand in the kernels line: this slice's main
+# path, the bench, for its two kernels; the step replay for the rest
+LINE_PATHS = {"fused_rollout": "bench", "fused_step_uniform": "step replay",
+              "fused_move": "step replay", "random_uniform_rows": "step replay",
+              "gather_values": "bench"}
 
 # The flagship agent (docs/curves/ntuple_4x6_tc_r5.meta.json and
 # td_4x6_tc_r5_adaptive_d3_eval.json): 4x6 layout, n_vals 16, stages at
@@ -200,9 +221,6 @@ TD_FLAGSHIP = dict(n_envs=8192, alpha=1.0, alpha_final=1.0, init_value=0.0, seed
                    chunk_steps=64, update_impl="auto", value_impl="auto", tc=True,
                    arch="4x6", n_vals=16, thresholds=(12, 13), tc_every=8,
                    carousel=0.5, carousel_slots=256)
-# bench.py::bench_td_big: 8192 envs x 16 steps, 4x6, TC, unstaged
-TD_BENCH_BIG = dict(n_envs=8192, chunk_steps=16, arch="4x6", tc=True, alpha=1.0,
-                    alpha_final=1.0, init_value=0.0)
 # docs/curves/td_4x6_tc_run.jsonl: 4x6, TC, unstaged, 8192 envs, alpha 1,
 # init 0; its first line is at 26,214,400 steps = 50 chunks x 64 x 8192
 TD_LEARN = dict(n_envs=8192, chunk_steps=64, arch="4x6", tc=True, alpha=1.0,
@@ -217,9 +235,6 @@ TD_TIMED_CHUNKS = 3
 # config (total_steps excepted), on the default lookup ("auto", the exact one).
 TD_SMALL = dict(n_envs=8192, chunk_steps=64, alpha=1.0, alpha_final=1.0, init_value=80_000.0,
                 seed=0, update_impl="mxu", value_impl="auto", tc=True)
-# bench.py::bench_td: 8192 envs x 64 steps, the split lookup, alpha 0.1, no TC
-TD_BENCH_SMALL = dict(n_envs=8192, chunk_steps=64, update_impl="mxu", value_impl="mxu",
-                      alpha=0.1, alpha_final=0.1)
 # docs/curves/td_mxu_run.jsonl: 8192 envs x 64, alpha 0.25 -> 0.05 over 150M
 # steps, init 80,000, no TC, the split lookup; its second line is at
 # 41,943,040 steps = 80 chunks
@@ -295,6 +310,47 @@ PPO_DP = dict(PPO_PRODUCTION, compute_dtype=torch.bfloat16, seed=SEED)
 # process: torch's two-pass kernel); Adam lets an element's roundoff grow
 # up to a step (tests/test_torch_ppo.py), so the losses drift apart.
 DP_LOSS_RTOL = 1e-2
+# The top-level entry points (phases 23-25). Phase 23 runs python -m
+# gym2048_tpu_torch.bench as a user does, in a process of its own, through
+# BENCH_RUNNER, which also writes the process's launch counts to a file; its
+# line must carry root bench.py's keys (bench.py:260-299), every rate, and
+# the headline within BENCH_HEADLINE_RTOL of phase 8c's rollout rate (the same
+# kernel, shape and seed). Phases 24-25 run the dry run and the scaling bench
+# on one NCCL rank here and as two gloo ranks sharing the card (started as
+# torchrun starts them), the scaling bench at small sizes a rank.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {
+    "pallas_fused_steps_per_s", "pallas_spread_steps_per_s", "pallas_batch",
+    "xla_steps_per_s", "xla_spread_steps_per_s", "xla_batch", "timing_samples", "scan_len",
+    "td_train_steps_per_s", "td_big_4x6_tc_steps_per_s", "ppo_steps_per_s",
+    "ppo_steps_per_s_reference_config", "xla_scaling_check_ratio", "scaling_check_ok", "device"}
+BENCH_RATES = ("pallas_fused_steps_per_s", "xla_steps_per_s", "td_train_steps_per_s",
+               "td_big_4x6_tc_steps_per_s", "ppo_steps_per_s",
+               "ppo_steps_per_s_reference_config")
+BENCH_HEADLINE_RTOL = 0.10
+BENCH_TIMEOUT = 480        # seconds, start-up included
+BENCH_RUNNER = """\
+import json, runpy, sys
+from gym2048_tpu_torch.core import fused_step
+from gym2048_tpu_torch.models import table_gather
+path = sys.argv[1]
+sys.argv = ["gym2048_tpu_torch.bench"]
+try:
+    runpy.run_module("gym2048_tpu_torch.bench", run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+with open(path, "w") as f:
+    json.dump({**fused_step.LAUNCHES, **table_gather.LAUNCHES}, f)
+sys.exit(code)
+"""
+ENTRY_RANKS = 2
+ENTRY_TIMEOUT = 300        # seconds for the two ranks of phase 24 or 25, start-up included
+# scripts/scaling_bench.py's row keys (:164-170) and its efficiency (:176-178)
+SCALING_ROW_KEYS = {"devices", "env_batch", "env_steps_per_s", "ppo_steps_per_s",
+                    "td_steps_per_s", "env_scaling_eff"}
+SCALING_ARGS = ["--boards-per-device", "65536", "--envs-per-device", "64", "--length", "16",
+                "--repeats", "1"]
 INTEROP_FIXTURES = ("tests/fixtures/interop_game2048.npz", "tests/fixtures/interop_sb3_policy.npz")
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
@@ -823,6 +879,37 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def dryrun_lines(text: str, n: int) -> list[str]:
+    """``dryrun_multichip``'s four lines in ``text``, checked for ``n`` ranks."""
+    lines = [x for x in text.splitlines() if x.startswith("dryrun_multichip")]
+    want = [f"dryrun_multichip 1/3 PPO OK: {n} devices, env batch {8 * n} ",
+            f"dryrun_multichip 2/3 TD OK: sharded TC chunk over {n} devices, ",
+            f"dryrun_multichip 3/3 env OK: 1048576 boards sharded over {n} devices, 4 steps",
+            f"dryrun_multichip OK: all 3 sub-checks on {n} devices"]
+    check(len(lines) == len(want) and all(x.startswith(w) for x, w in zip(lines, want)),
+          f"dryrun_multichip({n}) printed:\n{text[-4000:]}")
+    return lines
+
+
+def scaling_rows(text: str, n: int) -> list[dict]:
+    """The scaling bench's JSON rows in ``text``, checked for a job of ``n``
+    ranks: one a mesh size up to ``n``, the JAX script's keys, every rate
+    measured, the efficiency against the first row."""
+    from gym2048_tpu_torch.scaling_bench import MESH_SIZES
+
+    rows = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    check([r["devices"] for r in rows] == [m for m in MESH_SIZES if m <= n],
+          f"scaling rows for {n} ranks:\n{text[-4000:]}")
+    per_rank = int(SCALING_ARGS[SCALING_ARGS.index("--boards-per-device") + 1])
+    for r in rows:
+        check(set(r) == SCALING_ROW_KEYS, f"row keys {sorted(r)}")
+        check(min(r["env_steps_per_s"], r["ppo_steps_per_s"], r["td_steps_per_s"]) > 0
+              and r["env_batch"] == per_rank * r["devices"], f"row {r}")
+        check(r["env_scaling_eff"] == round(
+            r["env_steps_per_s"] / (rows[0]["env_steps_per_s"] * r["devices"]), 2), f"row {r}")
+    return rows
+
+
 class Smoke:
     """The phases of one run; ``self.kernels`` collects the JSON record."""
 
@@ -866,13 +953,18 @@ class Smoke:
         torch.cuda.synchronize()
         counts = self.launches()
         self.zero_launches()
+        self.record(path, counts)
+        return out
+
+    def record(self, path: str, counts: dict[str, int]) -> None:
+        """Add ``counts``, one run of ``path``, to the path's counts and
+        check that the path launched each of its kernels."""
+        counts = dict(counts)
         for name, n in self.path_launches.get(path, {}).items():
             counts[name] += n
         self.path_launches[path] = counts
         for name in PATHS[path]:
             check(counts[name] > 0, f"{name} was not launched on the {path} path")
-            self.kernels[name]["launches"] = counts[name]
-        return out
 
     # 1
     def device(self) -> str:
@@ -1273,7 +1365,7 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         times.sort()
         med = times[len(times) // 2]
-        rate = FULL_B * FULL_T / med
+        rate = self.rollout_rate = FULL_B * FULL_T / med
         rec = self.kernels["fused_rollout"]
         rec["ms"] = med * 1e3
         # a reset's extra instructions (one step in ~112) are not counted
@@ -1648,10 +1740,17 @@ class Smoke:
     # 15d
     def td_throughput(self) -> str:
         """Steps/s of the learner in the CLI's default mode at full width:
-        the flagship config and bench.py's bench_td_big cell."""
+        the flagship config, and bench.py's bench_td_big config as phase 23's
+        bench measured it."""
         return (self.td_rate(TD_FLAGSHIP, "flagship (ntuple_4x6_tc_r5 config)") + "; "
-                + self.td_rate(TD_BENCH_BIG, "bench_td_big (4x6 TC unstaged, 16 steps)")
+                + self.bench_rate("td_big_4x6_tc_steps_per_s",
+                                  "bench_td_big (4x6 TC unstaged, 16 steps)")
                 + f"; on {self.smi}")
+
+    def bench_rate(self, key: str, label: str) -> str:
+        """A rate of phase 23's bench line, for a config it times."""
+        return (f"{label}: {self.bench_line['detail'][key]} steps/s (phase 23's bench, the "
+                f"best after a warm-up)")
 
     # 15e
     def td_profile(self) -> str:
@@ -1783,14 +1882,14 @@ class Smoke:
 
     # 17d
     def td_small_throughput(self) -> str:
-        """Steps/s of the small learner in three configs, and
-        ``torch.profiler`` over one chunk of the first."""
+        """Steps/s of the small learner in three configs (bench_td's from
+        phase 23), and ``torch.profiler`` over one chunk of the first."""
         from gym2048_tpu_torch.train import td
 
-        rates = "; ".join(self.td_rate(c, label) for c, label in (
-            (TD_SMALL, "ntuple_table_tc1b config (TC, exact lookup)"),
-            (TD_BENCH_SMALL, "bench_td (split lookup, alpha 0.1)"),
-            ({}, "CLI defaults (TDConfig(): 4096 envs x 256)")))
+        rates = "; ".join([
+            self.td_rate(TD_SMALL, "ntuple_table_tc1b config (TC, exact lookup)"),
+            self.bench_rate("td_train_steps_per_s", "bench_td (split lookup, alpha 0.1)"),
+            self.td_rate({}, "CLI defaults (TDConfig(): 4096 envs x 256)")])
         profiled, device_us = self.profile_chunk(self.small_trainer, self.small_state)
         busy = sum(device_us.values())
         lookup = sum(us for k, us in device_us.items()
@@ -1935,23 +2034,25 @@ class Smoke:
                 f"(limit 1e-5); device ms per forward (graph replay; f32 at torch's "
                 f"defaults, cuDNN TF32 on): " + "; ".join(parts) + f"; on {self.smi}")
 
-    def ppo_rate(self, label: str, config: dict, dtype: torch.dtype, timed: int,
-                 profile_steps: int) -> str:
+    def ppo_rate(self, label: str, config: dict, dtype: torch.dtype, profile_steps: int,
+                 timed: int = 0, warm: bool = True, bench_key: str | None = None) -> str:
         """One ``bench_ppo`` shape: env steps/s over ``timed`` host-timed
         iterations after a warm-up (median, spread), each synced once by
-        reading its loss as ``learn`` reads its metrics; peak memory; the
-        rollout's and the update's share of one further iteration, each
-        timed to a device sync; the FLOPs of an iteration and their rate
-        against the card's peak; and ``torch.profiler`` over one iteration
-        of the shape cut to ``n_steps = profile_steps`` (rollout and SGD
-        steps in the same ratio; its kernels scaled to the whole shape)."""
+        reading its loss as ``learn`` reads its metrics, or, for a shape that
+        phase 23's bench times, its rate there (``bench_key``); peak memory;
+        the rollout's and the update's share of one further iteration (after
+        a warm-up iteration if ``warm``), each timed to a device sync; the
+        FLOPs of an iteration and their rate against the card's peak; and
+        ``torch.profiler`` over one iteration of the shape cut to ``n_steps =
+        profile_steps`` (rollout and SGD steps in the same ratio; its kernels
+        scaled to the whole shape)."""
         from gym2048_tpu_torch.train import ppo
 
         cfg = ppo.PPOConfig(**config, compute_dtype=dtype)
         tr = ppo.PPO(cfg, device=self.dev)
         state = tr.init_state()
-        if timed > 1:
-            state, _ = tr.train_iteration(state)  # warm-up
+        if warm:
+            state, _ = tr.train_iteration(state)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
@@ -1961,18 +2062,26 @@ class Smoke:
             state, metrics = tr.train_iteration(state)
             check(math.isfinite(float(metrics["loss"])), f"{label}: loss not finite")
             secs.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        rates = sorted(cfg.rollout_size / x for x in secs)
         timer = SyncTimer(tr, ("_collect_rollout", "_update_epochs"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.train_iteration(state)
+        _, metrics = tr.train_iteration(state)
+        check(math.isfinite(float(metrics["loss"])), f"{label}: loss not finite")
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
         rollout = sum(timer.seconds["_collect_rollout"]) / total
         update = sum(timer.seconds["_update_epochs"]) / total
+        if bench_key:
+            rate = self.bench_line["detail"][bench_key]
+            rate_text = f"{rate:.1f} steps/s (phase 23's bench, the best of 2 after a warm-up)"
+        else:
+            rates = sorted(cfg.rollout_size / x for x in secs)
+            rate = cfg.rollout_size / sorted(secs)[len(secs) // 2]
+            rate_text = (f"{rate:.1f} steps/s (median of {timed}; "
+                         f"{rates[0]:.1f}-{rates[-1]:.1f})")
         flops = ppo_iteration_flops(cfg)
-        achieved = flops / sorted(secs)[len(secs) // 2]
+        achieved = flops * rate / cfg.rollout_size
         peaks = (("bf16",) if dtype == torch.bfloat16 else ("f32", "tf32"))
         shares = ", ".join(f"{achieved / PEAK_FLOPS[k]:.4f} of the {k} peak" for k in peaks)
         prof_tr = ppo.PPO(ppo.PPOConfig(**{**config, "n_steps": profile_steps},
@@ -1984,23 +2093,24 @@ class Smoke:
                      f"of {wall / 1e6:.3f} s, {kernels} kernels an iteration ({kernels * scale} "
                      f"at n_steps {cfg.n_steps}); top: "
                      + "; ".join(f"{k} {v:.3f}" for k, v in top))
-        return (f"{label}: {cfg.rollout_size / sorted(secs)[len(secs) // 2]:.1f} steps/s "
-                f"(median of {timed}; {rates[0]:.1f}-{rates[-1]:.1f}), peak "
-                f"{peak:.3f} GiB allocated ({peak - held:.3f} above the {held:.3f} held "
-                f"before); one more iteration, its two parts timed to a sync: rollout "
-                f"{rollout:.3f} and update {update:.3f} of {total:.3f} s; {flops / 1e12:.2f} TFLOP an iteration, {achieved / 1e12:.1f} TFLOP/s "
+        return (f"{label}: {rate_text}, peak {peak:.3f} GiB allocated ({peak - held:.3f} above "
+                f"the {held:.3f} held before); one more iteration, its two parts timed to a "
+                f"sync: rollout {rollout:.3f} and update {update:.3f} of {total:.3f} s; "
+                f"{flops / 1e12:.2f} TFLOP an iteration, {achieved / 1e12:.1f} TFLOP/s "
                 f"({shares}); {prof}")
 
     # 19b
     def ppo_throughput(self) -> str:
-        """``bench.py::bench_ppo``'s shapes: production in bf16 and f32, the
-        reference (host-bound by design) for one iteration."""
+        """``bench.py::bench_ppo``'s shapes: production in bf16 (its rate from
+        phase 23's bench) and f32, and the reference (host-bound by design;
+        its rate from phase 23, its shares from a first iteration here)."""
         production, reference = PPO_PROFILE_STEPS
-        parts = [self.ppo_rate("production bf16", PPO_PRODUCTION, torch.bfloat16,
-                               PPO_TIMED_ITERATIONS, production),
-                 self.ppo_rate("production f32", PPO_PRODUCTION, torch.float32,
-                               PPO_TIMED_ITERATIONS, production),
-                 self.ppo_rate("reference f32", PPO_REFERENCE, torch.float32, 1, reference)]
+        parts = [self.ppo_rate("production bf16", PPO_PRODUCTION, torch.bfloat16, production,
+                               bench_key="ppo_steps_per_s"),
+                 self.ppo_rate("production f32", PPO_PRODUCTION, torch.float32, production,
+                               timed=PPO_TIMED_ITERATIONS),
+                 self.ppo_rate("reference f32", PPO_REFERENCE, torch.float32, reference,
+                               warm=False, bench_key="ppo_steps_per_s_reference_config")]
         return " | ".join(parts) + f"; on {self.smi}"
 
     # 19c
@@ -2563,15 +2673,11 @@ class Smoke:
         alone = pmesh.make_mesh()
         check(tuple(alone.shape) == (1, 1) and alone.mesh_dim_names == ("data", "model")
               and not dist.is_initialized(), f"the mesh without a process group: {alone}")
-        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
-                          WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
-        try:
-            t0 = time.perf_counter()
-            pmesh.init_distributed()
+        t0 = time.perf_counter()
+        with one_nccl_rank():
             mesh = pmesh.make_mesh()
             init_s = time.perf_counter() - t0
             backend = dist.get_backend()
-            check(backend == "nccl", f"backend {backend}, not NCCL")
             out = []
             for name, kw in (("flagship", TD_FLAGSHIP), ("small tc1b", TD_SMALL)):
                 tr = td.TDTrainer(td.TDConfig(**kw), device=self.dev)
@@ -2605,12 +2711,6 @@ class Smoke:
                            f"{plain_s:.3f} s; deterministic mode {det_dp_s:.3f} s and "
                            f"{det_plain_s:.3f} s, every leaf equal, {episodes:.0f} episodes")
                 del state
-        finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-            for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
-                        "LOCAL_WORLD_SIZE"):
-                os.environ.pop(var, None)
         return (f"make_mesh() without a process group: {tuple(alone.shape)}; {backend} world 1 "
                 f"and its mesh in {init_s:.3f} s; " + "; ".join(out)
                 + f"; launches {self.path_launches['td dp']}")
@@ -2629,26 +2729,10 @@ class Smoke:
         outdir = os.path.join("build", "dp")
         shutil.rmtree(outdir, ignore_errors=True)
         os.makedirs(outdir)
-        port = str(free_port())
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
-                                   str(r), port, outdir], env=env, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for r in range(DP_RANKS)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=DP_WORKER_TIMEOUT)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        run_ranks([[os.path.abspath(__file__), "--dp-worker", outdir]] * DP_RANKS,
+                  DP_WORKER_TIMEOUT)
         wall = time.perf_counter() - t0
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            check(p.returncode == 0, f"worker {r} failed (rc {p.returncode}):\n{out[-4000:]}")
         self.dp_outdir, self.dp_wall = outdir, wall
         res = [torch.load(os.path.join(outdir, f"td_rank{r}.pt"), weights_only=True)
                for r in range(DP_RANKS)]
@@ -2812,11 +2896,107 @@ class Smoke:
                 f"{table.numel()}-entry table in {save_s:.3f} s ({size:.2f} MB, "
                 f"{len(paths) - 1} part), read back as its bf16 rounding bit for bit")
 
+    # 23
+    def bench(self) -> str:
+        """``python -m gym2048_tpu_torch.bench`` as a user runs it, in a process
+        of its own on the card (path "bench": ``BENCH_RUNNER`` writes that
+        process's launch counts): exit 0 and one line with root bench.py's
+        keys, every rate measured, the ratio guard held, the card's
+        ``nvidia-smi`` line as its device, and the headline within
+        ``BENCH_HEADLINE_RTOL`` of phase 8c's rollout rate."""
+        counts_path = os.path.join("build", "bench_launches.json")
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", BENCH_RUNNER, counts_path],
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(done.returncode == 0, f"the bench exited {done.returncode}:\n"
+                                    f"{done.stdout[-2000:]}{done.stderr[-4000:]}")
+        lines = done.stdout.strip().splitlines()
+        check(len(lines) == 1, f"the bench printed {len(lines)} lines:\n{done.stdout[-4000:]}")
+        line = json.loads(lines[0])
+        detail = line["detail"]
+        check(set(line) == BENCH_KEYS and set(detail) == BENCH_DETAIL_KEYS,
+              f"keys {sorted(line)}, detail {sorted(detail)}")
+        missing = [k for k in BENCH_RATES if not detail[k]]
+        check(not missing, f"rates not measured: {missing}")
+        check(detail["scaling_check_ok"] is True,
+              f"the ratio guard failed: {detail['xla_scaling_check_ratio']}")
+        check(detail["device"] == self.smi, f"device {detail['device']!r}, not {self.smi!r}")
+        apart = abs(line["value"] / self.rollout_rate - 1.0)
+        check(apart <= BENCH_HEADLINE_RTOL, f"headline {line['value']} against 8c's "
+                                            f"{self.rollout_rate:.0f}")
+        with open(counts_path) as f:
+            self.record("bench", json.load(f))
+        self.bench_line = line
+        return (f"{wall:.2f} s in its own process: {lines[0]}; the headline {apart:.4f} from "
+                f"8c's {self.rollout_rate:.6e} (limit {BENCH_HEADLINE_RTOL}); launches "
+                f"{self.path_launches['bench']}")
+
+    # 24
+    def dryrun(self) -> str:
+        """``entry.dryrun_multichip(1)`` on one NCCL rank in this process (path
+        "dryrun"), then ``python -m gym2048_tpu_torch.entry`` (the forward, then
+        the dry run over the whole job) as ``ENTRY_RANKS`` gloo ranks sharing
+        the card, started as ``torchrun`` starts them: each sub-check's line,
+        and rank 0 alone printing."""
+        from gym2048_tpu_torch import entry
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with one_nccl_rank(), contextlib.redirect_stdout(buf):
+            self.drive("dryrun", lambda: entry.dryrun_multichip(1))
+        one_s = time.perf_counter() - t0
+        one = dryrun_lines(buf.getvalue(), 1)
+        t0 = time.perf_counter()
+        outs = run_ranks([["-m", "gym2048_tpu_torch.entry"]] * ENTRY_RANKS, ENTRY_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check("entry OK: ((256, 4), (256,))" in outs[0].splitlines(),
+              f"rank 0 printed no forward:\n{outs[0][-4000:]}")
+        many = dryrun_lines(outs[0], ENTRY_RANKS)
+        for out in outs[1:]:
+            check(not any(x.startswith(("entry OK", "dryrun_multichip")) for x in
+                          out.splitlines()), f"a rank other than 0 printed:\n{out[-4000:]}")
+        return (f"one NCCL rank, in this process, {one_s:.2f} s: {' | '.join(one)}; "
+                f"{ENTRY_RANKS} gloo ranks sharing the card, {wall:.2f} s with start-up: "
+                f"{' | '.join(many)}; launches {self.path_launches['dryrun']}")
+
+    # 25
+    def scaling(self) -> str:
+        """``gym2048_tpu_torch.scaling_bench`` at ``SCALING_ARGS`` on one NCCL
+        rank in this process (path "scaling") and as ``ENTRY_RANKS`` gloo ranks
+        sharing the card: rows of the JAX script's keys for each mesh size,
+        every rate measured, and the ``--md`` table written. The gloo ranks'
+        rates are functional numbers, not scaling."""
+        from gym2048_tpu_torch import scaling_bench
+
+        out_dir = os.path.join("build", "scaling")
+        os.makedirs(out_dir, exist_ok=True)
+        mds = [os.path.join(out_dir, f"ranks{n}.md") for n in (1, ENTRY_RANKS)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with one_nccl_rank(), contextlib.redirect_stdout(buf):
+            self.drive("scaling", lambda: scaling_bench.main([*SCALING_ARGS, "--md", mds[0]]))
+        one_s = time.perf_counter() - t0
+        one = scaling_rows(buf.getvalue(), 1)
+        t0 = time.perf_counter()
+        outs = run_ranks([["-m", "gym2048_tpu_torch.scaling_bench", *SCALING_ARGS,
+                           "--md", mds[1]]] * ENTRY_RANKS, ENTRY_TIMEOUT)
+        wall = time.perf_counter() - t0
+        many = scaling_rows(outs[0], ENTRY_RANKS)
+        for md, rows in zip(mds, (one, many)):
+            with open(md) as f:
+                table = [x for x in f.read().splitlines() if re.match(r"\| \d", x)]
+            check(len(table) == len(rows), f"{md} holds {len(table)} rows, not {len(rows)}")
+        return (f"{' '.join(SCALING_ARGS)}: one NCCL rank, in this process, {one_s:.2f} s: "
+                f"{one}; {ENTRY_RANKS} gloo ranks sharing the card, {wall:.2f} s with "
+                f"start-up: {many}; launches {self.path_launches['scaling']}")
+
     # 16
     def launch_counters(self) -> str:
         self.zero_launches()
         for name in KERNELS:
             check(self.run_launches[name] > 0, f"{name} never launched")
+            self.kernels[name]["launches"] = self.path_launches[LINE_PATHS[name]][name]
         return (f"per path {self.path_launches}; in the whole run {self.run_launches}")
 
 
@@ -2829,16 +3009,68 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dp_worker(rank: int, port: str, outdir: str) -> int:
-    """One of phase 21b's ranks (``--dp-worker``): ``init_distributed`` over
-    gloo (its default for two ranks on one card), then the small net's
-    sharded chunks and one data-parallel PPO iteration; writes
-    ``td_rank<r>.pt`` and ``ppo_rank<r>.pt`` into ``outdir``."""
+_RANK_VARIABLES = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                   "LOCAL_WORLD_SIZE")
+
+
+@contextlib.contextmanager
+def one_nccl_rank():
+    """A process group of this one process over NCCL, as ``torchrun``'s
+    variables give it, ended (and the variables removed) on exit."""
     import torch.distributed as dist
 
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, RANK=str(rank),
-                      WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(rank),
-                      LOCAL_WORLD_SIZE=str(DP_RANKS))
+    from gym2048_tpu_torch.parallel import mesh as pmesh
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    try:
+        pmesh.init_distributed()
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not NCCL")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for var in _RANK_VARIABLES:
+            os.environ.pop(var, None)
+
+
+def run_ranks(argvs: list[list[str]], timeout: float) -> list[str]:
+    """Start ``python <argv>`` for each argv at once, process r as rank r of
+    ``len(argvs)`` with ``torchrun``'s variables; wait at most ``timeout``
+    seconds for all, kill any left, check that each exited 0, and return
+    their outputs (standard output and error together)."""
+    base = {k: v for k, v in os.environ.items() if k not in _RANK_VARIABLES}
+    port, world = str(free_port()), str(len(argvs))
+    procs = []
+    for r, argv in enumerate(argvs):
+        env = dict(base, MASTER_ADDR="localhost", MASTER_PORT=port, RANK=str(r),
+                   WORLD_SIZE=world, LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=world)
+        procs.append(subprocess.Popen([sys.executable, *argv], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} of {argvs[r]} failed (rc {p.returncode}):\n"
+                                 f"{out[-4000:]}")
+    return outs
+
+
+def dp_worker(outdir: str) -> int:
+    """One of phase 21b's ranks (``--dp-worker``, started with ``torchrun``'s
+    variables by :func:`run_ranks`): ``init_distributed`` over gloo (its
+    default for two ranks on one card), then the small net's sharded chunks
+    and one data-parallel PPO iteration; writes ``td_rank<r>.pt`` and
+    ``ppo_rank<r>.pt`` into ``outdir``."""
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
     from gym2048_tpu_torch.parallel import mesh as pmesh
     from gym2048_tpu_torch.train import ppo, td
     from gym2048_tpu_torch.utils.debug import trajectory_fingerprint
@@ -2910,6 +3142,7 @@ def main() -> int:
     smoke.run("8a", "main path", smoke.main_path)
     smoke.run("8b", "step replay", smoke.step_replay)
     smoke.run("8c", "main path timing", smoke.main_path_measure)
+    smoke.run("23", "bench", smoke.bench)  # before 15d, 17d and 19b, which read its rates
     smoke.run("9", "batched env", smoke.batched_env)
     smoke.run("11", "gather_values", smoke.gather_values)
     smoke.run("12", "agent path", smoke.agent_path)
@@ -2949,6 +3182,8 @@ def main() -> int:
     smoke.run("21b", "dp two ranks", smoke.dp_two_ranks)
     smoke.run("21c", "ppo dp", smoke.ppo_dp)
     smoke.run("22", "shell rest", smoke.shell_rest)
+    smoke.run("24", "dryrun", smoke.dryrun)
+    smoke.run("25", "scaling", smoke.scaling)
     smoke.run("16", "launch counters", smoke.launch_counters)
     print(f"total {time.perf_counter() - t_start:.2f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -3063,7 +3298,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                              "baseline)")
     parser.add_argument("--rounds", type=int, default=GATHER_AB_ROUNDS,
                         help="rounds of --gather-ab")
-    parser.add_argument("--dp-worker", nargs=3, metavar=("RANK", "PORT", "OUTDIR"),
+    parser.add_argument("--dp-worker", metavar="OUTDIR",
                         help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
 
@@ -3071,7 +3306,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
 if __name__ == "__main__":
     args = parse_args(sys.argv[1:])
     if args.dp_worker and torch.cuda.is_available():
-        sys.exit(dp_worker(int(args.dp_worker[0]), *args.dp_worker[1:]))
+        sys.exit(dp_worker(args.dp_worker))
     if args.gather_ab and torch.cuda.is_available():
         sys.exit(gather_ab(args.gather_ab, args.rounds))
     sys.exit(main())

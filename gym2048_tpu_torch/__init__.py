@@ -39,7 +39,10 @@ Layout (mirrors ``gym2048_tpu``):
   ``python -m gym2048_tpu_torch.tools.<name>``;
 * ``interop.py`` — state and CNN weights carried between the JAX package and
   the port as numpy;
-* ``entry.py`` — the flagship actor-critic's forward as one callable.
+* ``entry.py`` — the flagship actor-critic's forward as one callable, and
+  the multi-rank dry run (``dryrun_multichip``);
+* ``bench.py`` and ``scaling_bench.py`` — the headline benchmark (root
+  ``bench.py``'s line) and the weak-scaling harness over meshes of ranks.
 """
 
 __version__ = "0.1.0"

@@ -94,11 +94,19 @@ def default_backend(device: str | torch.device) -> str:
 def rank_device(device: str | torch.device) -> torch.device:
     """``device`` for this rank: ``cuda`` without an index becomes card
     ``LOCAL_RANK`` modulo the cards there are (several ranks share a card
-    when there are fewer cards than ranks); any other device is itself."""
+    when there are fewer cards than ranks; with no card it raises); any
+    other device is itself."""
     device = torch.device(device)
     if device.type != "cuda" or device.index is not None:
         return device
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass the CPU as the device to run there")
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+
+
+def world_size() -> int:
+    """Ranks of the default process group (1 without one)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def make_mesh(devices: Sequence[int] | None = None, model_parallelism: int = 1) -> DeviceMesh:
@@ -108,7 +116,7 @@ def make_mesh(devices: Sequence[int] | None = None, model_parallelism: int = 1) 
     issues no collective."""
     initialized = dist.is_available() and dist.is_initialized()
     if devices is None:
-        devices = range(dist.get_world_size() if initialized else 1)
+        devices = range(world_size())
     ranks = [int(d) for d in devices]
     if len(ranks) % model_parallelism:
         raise ValueError(f"{len(ranks)} ranks do not divide into model_parallelism "

@@ -35,6 +35,9 @@ PARALLEL_AND_UTILS = {
     "gym2048_tpu_torch.parallel", "gym2048_tpu_torch.parallel.mesh",
     "gym2048_tpu_torch.utils.debug", "gym2048_tpu_torch.utils.profiler",
 }
+# the top-level entry points: the headline bench, the dry run, the scaling bench
+ENTRY_POINTS = {"gym2048_tpu_torch.bench", "gym2048_tpu_torch.scaling_bench",
+                       "gym2048_tpu_torch.entry"}
 GYMNASIUM_MODULES = {"gym2048_tpu_torch.env.registration", "gym2048_tpu_torch.env.vector"}
 OPTIONAL = ("gymnasium", "orbax", "ml_dtypes", "pygame", "matplotlib", "PIL", "tensorboard")
 
@@ -56,7 +59,7 @@ def test_port_modules_are_found():
             "gym2048_tpu_torch.entry", "gym2048_tpu_torch.train.ppo",
             "gym2048_tpu_torch.train.bc", "gym2048_tpu_torch.train.eval",
             "gym2048_tpu_torch.models", *HOST_SIDE, *GYMNASIUM_MODULES,
-            *PARALLEL_AND_UTILS} <= set(PORT_MODULES)
+            *PARALLEL_AND_UTILS, *ENTRY_POINTS} <= set(PORT_MODULES)
 
 
 def test_imports_without_jax_or_the_jax_package():

@@ -9,12 +9,19 @@ small net with TC, from init_state, through ``TDTrainer.learn``), ``td4x6``
 carousel, alpha 0: the table stays and the TC sums are exact in any order)
 ``ppo`` (one data-parallel PPO iteration at a tiny shape) and
 ``ppo_update`` (``PPO._update_epochs`` from the weights, buffer and
-permutations in ``<outdir>/update_inputs.pt``). Each rank writes
+permutations in ``<outdir>/update_inputs.pt``), ``dryrun``
+(``gym2048_tpu_torch.entry``'s ``main``: the forward and
+``dryrun_multichip`` over every rank) and ``scaling``
+(``gym2048_tpu_torch.scaling_bench``'s ``main`` at a tiny size, its table
+written to ``<outdir>/scaling.md``); these two keep what the rank printed.
+Each rank writes
 ``rank<r>.pt``: the whole TD states (collected from every rank), the PPO
 parameters, metrics and collected rollout, and the updated weights, for
 the test to compare across ranks and with its in-process results.
 """
 
+import contextlib
+import io
 import os
 import sys
 
@@ -26,7 +33,7 @@ def main() -> None:
     import torch
 
     torch.set_num_threads(1)
-    from gym2048_tpu_torch import interop
+    from gym2048_tpu_torch import entry, interop, scaling_bench
     from gym2048_tpu_torch.parallel import init_distributed, make_mesh
     from gym2048_tpu_torch.parallel import mesh as pmesh
     from gym2048_tpu_torch.train import ppo, td
@@ -72,9 +79,22 @@ def main() -> None:
             metrics = trainer._update_epochs(state, data, perms=list(inputs["perms"]))
             out["ppo_update"] = {"variables": interop.resnet_variables(model),
                                  "metrics": {k: float(v) for k, v in metrics.items()}}
+        elif mode == "dryrun":
+            out["dryrun"] = printed(entry.main, ["--device", "cpu"])
+        elif mode == "scaling":
+            out["scaling"] = printed(scaling_bench.main, [
+                *SCALING_ARGS, "--md", os.path.join(outdir, "scaling.md"), "--device", "cpu"])
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
     print(f"rank {rank} OK", flush=True)
+
+
+def printed(main, argv: list[str]) -> str:
+    """What ``main(argv)`` prints."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
 
 
 TD_CONFIGS = {
@@ -89,6 +109,8 @@ PPO_CONFIG = dict(total_timesteps=4096, n_envs=16, n_steps=8, batch_size=32, n_e
 # 2 epochs of 4 minibatches of 2 time rows x 8 envs
 PPO_UPDATE_CONFIG = dict(total_timesteps=64, n_envs=8, n_steps=8, batch_size=16, n_epochs=2,
                          filters=8, residual_blocks=1, shuffle_mode="sharded")
+SCALING_ARGS = ["--boards-per-device", "64", "--envs-per-device", "16", "--length", "4",
+                "--repeats", "1"]
 
 if __name__ == "__main__":
     main()
