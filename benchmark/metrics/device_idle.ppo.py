@@ -1,0 +1,7 @@
+"""device_idle.ppo: share of the traced PPO window with no operation on the card (%)."""
+
+from benchmark.layer_metrics import device_idle
+
+
+def read(ctx):
+    return device_idle(ctx)

@@ -1,0 +1,7 @@
+"""device_idle.td: share of the traced TD window with no operation on the card (%)."""
+
+from benchmark.layer_metrics import device_idle
+
+
+def read(ctx):
+    return device_idle(ctx)

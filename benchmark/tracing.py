@@ -1,0 +1,221 @@
+"""The traced run: spans around the program's layers, ``torch.profiler``
+over a short window of whole units, and the reduction of its trace to the
+numbers the per-layer metrics read.
+
+A :class:`Span` replaces one attribute of the program (a function in a
+module, or a method on an object) that the caller looks up when it calls
+it, with a wrapper that opens a ``torch.profiler.record_function`` range of
+the span's name, adds the host seconds of each call, and, while the window
+records, hands the call's arguments and result to the span's ``keep``
+function. The wrappers exist only in the traced run and do no device work.
+"""
+
+from __future__ import annotations
+
+import bisect
+import contextlib
+import dataclasses
+import time
+
+import torch
+
+
+class Span:
+    """A span ``name`` around ``owner.attr`` (see the module docstring)."""
+
+    def __init__(self, owner, attr: str, name: str, keep=None):
+        self.owner, self.attr, self.name, self.keep = owner, attr, name, keep
+        self.host_s = 0.0
+        self.recording = False
+        self._orig = None
+
+    def install(self) -> None:
+        orig = self._orig = getattr(self.owner, self.attr)
+        span = self
+
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function(span.name):
+                t0 = time.perf_counter()
+                out = orig(*args, **kwargs)
+                dt = time.perf_counter() - t0
+            if span.recording:
+                span.host_s += dt
+                if span.keep is not None:
+                    span.keep(args, kwargs, out)
+            return out
+
+        setattr(self.owner, self.attr, wrapper)
+
+    def uninstall(self) -> None:
+        setattr(self.owner, self.attr, self._orig)
+
+
+@contextlib.contextmanager
+def installed(spans: list[Span]):
+    for s in spans:
+        s.install()
+    try:
+        yield
+    finally:
+        for s in reversed(spans):
+            s.uninstall()
+
+
+@dataclasses.dataclass
+class Context:
+    """What the per-layer metrics read (``metrics/<name>.py``)."""
+
+    entry: object
+    units: int
+    steps: float          # the entry's lockstep steps (TD steps, moves, env steps a env)
+    window_s: float
+    busy_s: float
+    ops: int              # device operations (kernels, copies, fills) in the window
+    op_s: dict            # device seconds by operation name
+    span_device_s: dict   # device seconds of the kernels launched inside each span
+    span_host_s: dict     # host seconds inside each span
+    stash: dict           # what the spans' ``keep`` functions collected
+    breakdown: dict
+
+    def op_seconds(self, needle: str) -> float:
+        """Device seconds of the operations whose name contains ``needle``."""
+        return sum(s for n, s in self.op_s.items() if needle in n)
+
+
+def short_name(name: str) -> str:
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "at::", "c10::"):
+        name = name.replace(noise, "")
+    return name[:100]
+
+
+def _union_s(intervals: list[tuple[float, float]]) -> tuple[float, list[tuple[float, float]]]:
+    """Length of the union of intervals and the merged intervals."""
+    merged: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return sum(b - a for a, b in merged), [(a, b) for a, b in merged]
+
+
+def _gap_owners(gaps, cpu: list[tuple]) -> dict[str, float]:
+    """Seconds of device idle gaps by the deepest host event running at each
+    gap's middle on the busiest host thread (``python`` where none ran).
+    ``cpu`` holds ``(start, end, name, thread)`` in nanoseconds."""
+    if not cpu:
+        return {}
+    counts: dict[int, int] = {}
+    for e in cpu:
+        counts[e[3]] = counts.get(e[3], 0) + 1
+    main = max(counts, key=counts.get)
+    evs = sorted(e[:3] for e in cpu if e[3] == main)
+    out: dict[str, float] = {}
+    stack: list[tuple] = []
+    i = 0
+    for a, b in sorted(gaps, key=lambda g: g[0] + g[1]):
+        mid = (a + b) / 2
+        while i < len(evs) and evs[i][0] <= mid:
+            while stack and stack[-1][1] < evs[i][0]:
+                stack.pop()
+            stack.append(evs[i])
+            i += 1
+        while stack and stack[-1][1] < mid:
+            stack.pop()
+        owner = stack[-1][2] if stack else "python"
+        out[owner] = out.get(owner, 0.0) + (b - a) / 1e9
+    return out
+
+
+def _raw_events(prof, span_names: set[str]):
+    """``(device, cpu, span_device_s)`` from the profiler's raw Kineto
+    events, in nanoseconds: device ``(start, end, name)``, host ``(start,
+    end, name, thread)``. A kernel counts for a span when the host operation
+    that launched it began inside the span on the same thread. Reading the
+    raw events skips building torch's event tree, which takes minutes for a
+    window of a million operations."""
+    from torch.autograd import DeviceType
+
+    device, cpu, launched = [], [], []
+    op_at: dict[int, tuple[int, int]] = {}
+    spans: dict[str, list[tuple[int, int, int]]] = {n: [] for n in span_names}
+    for e in prof.profiler.kineto_results.events():
+        name, start = e.name(), e.start_ns()
+        end = start + e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation() or name in span_names:
+                continue
+            device.append((start, end, name))
+            launched.append((e.linked_correlation_id(), end - start))
+        elif e.device_type() == DeviceType.CPU:
+            thread = e.start_thread_id()
+            cpu.append((start, end, name, thread))
+            if e.correlation_id():
+                op_at[e.correlation_id()] = (start, thread)
+            if name in spans:
+                spans[name].append((start, end, thread))
+    starts = {n: [iv[0] for iv in sorted(ivs)] for n, ivs in spans.items()}
+    spans = {n: sorted(ivs) for n, ivs in spans.items()}
+    span_device_s = {n: 0.0 for n in span_names}
+    for corr, dur in launched:
+        if corr not in op_at:
+            continue
+        t, thread = op_at[corr]
+        for n, ivs in spans.items():
+            k = bisect.bisect_right(starts[n], t) - 1
+            if k >= 0 and ivs[k][1] >= t and ivs[k][2] == thread:
+                span_device_s[n] += dur / 1e9
+    return device, cpu, span_device_s
+
+
+def reduce_profile(prof, span_names: set[str]) -> dict:
+    """Busy seconds, operation count and times, span device seconds and the
+    breakdown of one profiled window."""
+    device, cpu, span_device_s = _raw_events(prof, span_names)
+    op_s: dict[str, float] = {}
+    for a, b, name in device:
+        op_s[name] = op_s.get(name, 0.0) + (b - a) / 1e9
+    busy_ns, merged = _union_s([(a, b) for a, b, _ in device])
+    gaps = [(merged[k][1], merged[k + 1][0]) for k in range(len(merged) - 1)]
+    top = sorted(op_s.items(), key=lambda kv: -kv[1])[:10]
+    owners = sorted(_gap_owners(gaps, cpu).items(), key=lambda kv: -kv[1])[:10]
+    return {"busy_s": busy_ns / 1e9, "ops": len(device), "op_s": op_s,
+            "span_device_s": span_device_s,
+            "breakdown": {"device_ops": [[short_name(n), s] for n, s in top],
+                          "idle_gaps": [[short_name(n), s] for n, s in owners]}}
+
+
+def traced_window(entry) -> Context:
+    """Profile the entry's traced window (``entry.traced_units``) with its
+    spans installed, and reduce the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if entry.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    spans = entry.spans()
+    prof = profile(activities=activities)
+    clock: dict[str, float] = {}
+
+    def start():
+        entry.sync()
+        for s in spans:
+            s.recording = True
+        prof.start()
+        clock["t0"] = time.perf_counter()
+
+    def stop():
+        entry.sync()
+        clock["t1"] = time.perf_counter()
+        prof.stop()
+        for s in spans:
+            s.recording = False
+
+    with installed(spans):
+        units, steps = entry.traced_units(start, stop)
+    red = reduce_profile(prof, {s.name for s in spans})
+    return Context(entry=entry, units=units, steps=steps, window_s=clock["t1"] - clock["t0"],
+                   busy_s=red["busy_s"], ops=red["ops"], op_s=red["op_s"],
+                   span_device_s=red["span_device_s"],
+                   span_host_s={s.name: s.host_s for s in spans},
+                   stash=entry.stash, breakdown=red["breakdown"])
