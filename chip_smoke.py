@@ -212,6 +212,8 @@ SPIN_CYCLES = 100_000
 GATHER_THREADS = 256
 # Rounds of the same-call comparison of gather sources (--gather-ab).
 GATHER_AB_ROUNDS = 12
+# Rounds of the traced units with and without the program's spans (--span-cost).
+SPAN_COST_ROUNDS = 6
 LEAF_BOARDS = 512          # boards whose depth-2 leaves make the real stream
 TIMING_GAMES = 512         # README: --episodes 512 --depth 2
 
@@ -850,11 +852,20 @@ class SyncTimer:
         return timed
 
 
+def device_ops(prof) -> list:
+    """The profile's device operations (kernels, copies, fills) by name, from
+    ``key_averages()``: the device intervals of the program's spans and other
+    ``record_function`` ranges are annotations, not work."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and not e.is_user_annotation]
+
+
 def profile_device(fn) -> tuple[float, float, int, list[tuple[str, float]]]:
     """``torch.profiler`` over one call of ``fn``: ``(wall us, device busy
     us, device kernels, the five largest kernels with their share of the
     busy time)``; busy 0 if the profiler recorded no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -863,8 +874,7 @@ def profile_device(fn) -> tuple[float, float, int, list[tuple[str, float]]]:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device = device_ops(prof)
     busy = sum(e.self_device_time_total for e in device)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
     return (wall_us, busy, sum(e.count for e in device),
@@ -1515,7 +1525,6 @@ class Smoke:
         """``torch.profiler`` over a few lockstep moves of the flagship agent
         on fresh games (phase 12 warmed it up): the device's busy share of
         the wall time and the kernels that take the most device time."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         from gym2048_tpu_torch.agents import expectimax as ex
@@ -1531,8 +1540,7 @@ class Smoke:
             wall_us = (time.perf_counter() - t0) * 1e6
         # device-side events only (kernels, copies, sets): host operators
         # also carry the device time of what they launched
-        device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        device_us = {e.key: e.self_device_time_total for e in device_ops(prof)}
         busy = sum(device_us.values())
         if busy == 0:
             return "torch.profiler recorded no device time: busy share not measured"
@@ -1690,7 +1698,6 @@ class Smoke:
         """``torch.profiler`` over one chunk of ``tr`` from a copy of
         ``state`` (device events only): its text (the device's busy share,
         kernels per step, top kernels) and the device us by kernel."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         steps = tr.cfg.chunk_steps
@@ -1701,13 +1708,12 @@ class Smoke:
             tr.train_chunk(state, tr.cfg.alpha)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        ops = device_ops(prof)
+        device_us = {e.key: e.self_device_time_total for e in ops}
         busy = sum(device_us.values())
         if not busy:
             return "torch.profiler recorded no device time: busy share not measured", {}
-        launches = sum(e.count for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+        launches = sum(e.count for e in ops)
         top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
         return (f"wall {wall_us / steps / 1e3:.3f} ms per step under the profiler, device "
                 f"busy {busy / steps / 1e3:.3f} ms per step ({busy / wall_us:.4f} of the "
@@ -2863,7 +2869,7 @@ class Smoke:
 
         tr, state = self.small_trainer, clone_state(self.small_state)
         with profiler.trace(os.path.join("build", "traces")) as prof:
-            with profiler.annotate("td_small_chunk"):
+            with profiler.span("td_small_chunk"):
                 tr.train_chunk(state, TD_SMALL["alpha"])
             torch.cuda.synchronize()
         names = {e.get("name", "") for e in json.load(open(prof.trace_path))["traceEvents"]}
@@ -3290,6 +3296,203 @@ def gather_ab(sources: list[str], rounds: int = GATHER_AB_ROUNDS) -> int:
     return 0
 
 
+def span_cost(rounds: int = SPAN_COST_ROUNDS) -> int:
+    """The program's spans while a profiler records (``--span-cost``), in one
+    process on one card.
+
+    First the recorder's premises on this torch: the profiler flag off and
+    on, what an idle ``record_function``, an idle ``span`` and a flag read
+    cost, what each costs while a profiler records, what a kernel launch
+    costs outside a range and inside each, and each span's recorded
+    interval against its Kineto event. Then
+    ``rounds`` rounds of the benchmark's two units, each run three ways in
+    turn (the order reversed every other round, after a garbage collection
+    each): untraced, traced with the spans as written, and traced with
+    ``profiler.span`` and ``profiler.count`` swapped here for no-ops. The units are a flagship TD chunk
+    (``TD_FLAGSHIP``) and a production PPO iteration in bf16
+    (``PPO_PRODUCTION``), each read on the host as the benchmark reads it
+    and timed from a sync to a sync inside the profiler's window. Prints
+    one JSON line, also written to ``build/span_cost.json``: the
+    times of each way, the spans' cost (traced with spans less traced
+    without, paired by round), the device operations of each traced unit
+    (equal both ways: the spans launch nothing), the median host self
+    seconds of each span, and the widest gap between a span's
+    recorded start or end and its Kineto event's."""
+    import gc
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gym2048_tpu_torch.train import ppo, td
+    from gym2048_tpu_torch.utils import profiler
+
+    dev = torch.device("cuda")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {"torch": torch.__version__, "cuda": torch.version.cuda,
+           "device": torch.cuda.get_device_name(dev), "flag_off": profiler.profiler_enabled()}
+    n = 20_000
+
+    def per_call_us(enter=None) -> float:
+        """Microseconds a ``with enter():`` (a flag read without ``enter``)."""
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if enter is None:
+                profiler.profiler_enabled()
+            else:
+                with enter():
+                    pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out["flag_read_us"] = per_call_us()
+    out["idle_record_function_us"] = per_call_us(lambda: torch.profiler.record_function("i"))
+    out["idle_span_us"] = per_call_us(lambda: profiler.span("idle"))
+
+    def clock_gap_ns(prof) -> int:
+        """The widest gap between a recorded span and the Kineto event of its
+        name that starts nearest to it."""
+        events: dict[str, list[tuple[int, int]]] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CPU:
+                events.setdefault(e.name(), []).append((e.start_ns(),
+                                                        e.start_ns() + e.duration_ns()))
+        gap = 0
+        for name, _, _, start, end in profiler.RECORDER.records:
+            ks, ke = min(events[name], key=lambda iv: abs(iv[0] - start))
+            gap = max(gap, abs(ks - start), abs(ke - end))
+        return gap
+
+    def ops_and_annotations(prof) -> tuple[int, int]:
+        ops = notes = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                if e.is_user_annotation():
+                    notes += 1
+                else:
+                    ops += 1
+        return ops, notes
+
+    profiler.clear()
+    with profile(activities=acts) as prof:
+        out["flag_on"] = profiler.profiler_enabled()
+        for k in range(8):
+            with profiler.span(f"clock.{k}"):
+                torch.ones(1 << 20, device=dev).cumsum(0)
+                time.sleep(0.001)
+        torch.cuda.synchronize()
+    out["clock_gap_us"] = {"probe": clock_gap_ns(prof) / 1e3}
+    profiler.clear()
+    with profile(activities=acts):
+        out["recording_span_us"] = per_call_us(lambda: profiler.span("on"))
+        out["recording_record_function_us"] = per_call_us(
+            lambda: torch.profiler.record_function("on"))
+    profiler.clear()
+    x = torch.zeros(1, device=dev)
+
+    def launch_us(enter) -> float:
+        """Microseconds a launch of a one-element kernel while a profiler
+        records, the launches inside ``with enter():``."""
+        with profile(activities=acts), enter():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e6
+
+    enters = {"outside": contextlib.nullcontext, "in_span": lambda: profiler.span("launch"),
+              "in_record_function": lambda: torch.profiler.record_function("launch")}
+    launches: dict[str, list[float]] = {k: [] for k in enters}
+    for _ in range(3):
+        for k, enter in enters.items():
+            launches[k].append(launch_us(enter))
+    out["launch_us"] = {k: statistics.median(v) for k, v in launches.items()}
+    profiler.clear()
+
+    trainer_td = td.TDTrainer(td.TDConfig(**TD_FLAGSHIP), device=dev)
+    state_td = {"s": trainer_td.init_state()}
+    cfg_ppo = ppo.PPOConfig(**PPO_PRODUCTION, filters=CNN_FILTERS,
+                            residual_blocks=CNN_BLOCKS, compute_dtype=torch.bfloat16)
+    trainer_ppo = ppo.PPO(cfg_ppo, device=dev)
+    state_ppo = {"s": trainer_ppo.init_state()}
+
+    def td_unit():
+        state_td["s"], m = trainer_td.train_chunk(state_td["s"], TD_FLAGSHIP["alpha"])
+        float(m["episodes"])
+
+    def ppo_unit():
+        state_ppo["s"], m = trainer_ppo.train_iteration(state_ppo["s"])
+        float(m["loss"])
+
+    span, count = profiler.span, profiler.count
+    off = contextlib.nullcontext()
+
+    def run(unit, way: str):
+        """One unit ``way`` (off, spans, noop): its seconds and the profile."""
+        if way == "noop":
+            profiler.span, profiler.count = (lambda name, unit=None: off), (lambda name, n: None)
+        try:
+            torch.cuda.synchronize()
+            prof = profile(activities=acts) if way != "off" else None
+            if prof is not None:
+                prof.start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unit()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if prof is not None:
+                prof.stop()
+            return dt, prof
+        finally:
+            profiler.span, profiler.count = span, count
+
+    ways = ("off", "spans", "noop")
+    for name, unit in (("td_chunk", td_unit), ("ppo_iteration", ppo_unit)):
+        for way in ways:  # warm-up: shapes, the profiler's first start
+            run(unit, way)
+        profiler.clear()
+        times = {w: [] for w in ways}
+        ops = {w: [] for w in ways[1:]}
+        self_s: dict[str, list[float]] = {}
+        for r in range(rounds):
+            # the two traced ways side by side, each first in every other round
+            for way in ways if r % 2 == 0 else ways[::-1]:
+                gc.collect()  # no collection of the last unit's garbage inside the next
+                dt, prof = run(unit, way)
+                times[way].append(dt)
+                if prof is not None:
+                    ops[way].append(ops_and_annotations(prof))
+                if way == "spans":
+                    out["clock_gap_us"][name] = max(out["clock_gap_us"].get(name, 0.0),
+                                                    clock_gap_ns(prof) / 1e3)
+                    last = profiler.summary()
+                    for k, v in last["spans"].items():
+                        self_s.setdefault(k, []).append(v["self_s"])
+                    profiler.clear()
+        cost = [1e3 * (a - b) for a, b in zip(times["spans"], times["noop"])]
+        out[name] = {
+            "seconds": times,
+            "median_s": {w: statistics.median(t) for w, t in times.items()},
+            "span_cost_ms": statistics.median(cost),
+            "span_cost_ms_quartiles": statistics.quantiles(cost, n=4),
+            "span_cost_ms_each": cost,
+            "device_ops_and_annotations": ops,
+            "self_s_median": {k: statistics.median(v) for k, v in self_s.items()},
+            "calls": {k: v["calls"] for k, v in last["spans"].items()},
+            "counters": last["counters"],
+        }
+        print(f"{name}: " + json.dumps(out[name]), flush=True)
+    out["smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "span_cost.json"), "w") as f:
+        json.dump(out, f)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def parse_args(argv: list[str]) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--gather-ab", nargs="+", metavar="SOURCE",
@@ -3298,6 +3501,10 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                              "baseline)")
     parser.add_argument("--rounds", type=int, default=GATHER_AB_ROUNDS,
                         help="rounds of --gather-ab")
+    parser.add_argument("--span-cost", type=int, nargs="?", const=SPAN_COST_ROUNDS,
+                        metavar="ROUNDS",
+                        help="instead of the phases, time traced TD chunks and PPO "
+                             "iterations with and without the program's spans")
     parser.add_argument("--dp-worker", metavar="OUTDIR",
                         help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
@@ -3309,4 +3516,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(args.dp_worker))
     if args.gather_ab and torch.cuda.is_available():
         sys.exit(gather_ab(args.gather_ab, args.rounds))
+    if args.span_cost and torch.cuda.is_available():
+        sys.exit(span_cost(args.span_cost))
     sys.exit(main())

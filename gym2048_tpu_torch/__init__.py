@@ -30,8 +30,8 @@ Layout (mirrors ``gym2048_tpu``):
   into ``build/`` at first use), and ``data/`` — ``TrainingData`` and its
   35/36-column CSV schema;
 * ``utils/`` — checkpoints, model files and bf16 table artifacts, metrics,
-  rendering and GIFs, ``torch.profiler`` traces (``profiler``), board
-  checks and rollout fingerprints (``debug``);
+  rendering and GIFs, ``torch.profiler`` traces and the program's spans
+  (``profiler``), board checks and rollout fingerprints (``debug``);
 * ``parallel/`` — the ``(data, model)`` mesh over ``torch.distributed`` and
   the data-parallel layout of the TD learner's sharded chunk and of PPO;
 * ``tools/`` — the CLIs (selfplay, train, pretrain_bc, ppo, evaluate, the

@@ -70,6 +70,7 @@ from gym2048_tpu_torch.models.resnet import (ActorCritic, boards_to_model_input,
                                              sync_batch_norm)
 from gym2048_tpu_torch.ops import returns as returns_ops
 from gym2048_tpu_torch.parallel import mesh as pmesh
+from gym2048_tpu_torch.utils import profiler
 
 _NEG = -1e9
 _TINY = torch.finfo(torch.float32).tiny
@@ -370,28 +371,33 @@ class PPO:
         )
         env_state = state.env_state
         for t in range(t_len):
-            logits, value = self._policy(model, env_state.board)
-            products = batched.move_products(env_state)
-            if cfg.mask_illegal:
-                # one move_all serves both the policy mask and the env step
-                logits = torch.where(products[2], logits, _NEG)
-            # Gumbel max over uniforms in [tiny, 1): jax.random.categorical's law
-            u = self._uniform(gen, (cfg.n_envs, 4)).clamp_min(_TINY)
-            action = (logits - torch.log(-torch.log(u))).argmax(-1)
-            logprob = torch.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
-            traj.board[t] = env_state.board
-            env_state, ts = batched.step_with_products(env_state, action, products,
-                                                       self.env_cfg,
-                                                       u=self._uniform(gen, (cfg.n_envs, 6)))
-            traj.action[t] = action
-            traj.logprob[t] = logprob
-            traj.value[t] = value
-            traj.reward[t] = ts.reward
-            traj.done[t] = ts.terminated
-            traj.score[t] = ts.score
-            traj.highest[t] = ts.highest
-            traj.ep_len[t] = ts.steps
-        _, last_value = self._policy(model, env_state.board)
+            # the env span holds the step's policy span: one of each a step,
+            # the env's own work (the moves, the step, the writes) its self time
+            with profiler.span("ppo.env"):
+                products = batched.move_products(env_state)
+                with profiler.span("ppo.policy"):
+                    logits, value = self._policy(model, env_state.board)
+                    if cfg.mask_illegal:
+                        # one move_all serves both the policy mask and the env step
+                        logits = torch.where(products[2], logits, _NEG)
+                    # Gumbel max over uniforms in [tiny, 1): jax.random.categorical's law
+                    u = self._uniform(gen, (cfg.n_envs, 4)).clamp_min(_TINY)
+                    action = (logits - torch.log(-torch.log(u))).argmax(-1)
+                    logprob = torch.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
+                traj.board[t] = env_state.board
+                env_state, ts = batched.step_with_products(
+                    env_state, action, products, self.env_cfg,
+                    u=self._uniform(gen, (cfg.n_envs, 6)))
+                traj.action[t] = action
+                traj.logprob[t] = logprob
+                traj.value[t] = value
+                traj.reward[t] = ts.reward
+                traj.done[t] = ts.terminated
+                traj.score[t] = ts.score
+                traj.highest[t] = ts.highest
+                traj.ep_len[t] = ts.steps
+        with profiler.span("ppo.policy"):
+            _, last_value = self._policy(model, env_state.board)
         state.env_state = env_state
         return traj, last_value
 
@@ -401,18 +407,21 @@ class PPO:
         ``_AUX`` metrics stacked ``(6,)``, on the device."""
         cfg = self.cfg
         model = state.model.train()
-        with (sync_batch_norm(self.group, self.world) if self.group is not None
-              else contextlib.nullcontext()):
-            logits, value = self._policy(model, mb.board)
-        if cfg.mask_illegal:
-            _, _, legal = rules.move_all(mb.board)
-            logits = torch.where(legal, logits, _NEG)
-        policy_loss, value_loss, entropy, approx_kl, clip_frac = ppo_loss_terms(
-            logits, value, mb.action, mb.logprob, mb.adv, mb.ret, cfg.clip_coef,
-            self.group, self.world)
-        loss = policy_loss - cfg.ent_coef * entropy + cfg.vf_coef * value_loss
-        loss.backward()
-        state.optimizer.step()
+        with profiler.span("ppo.forward"):
+            with (sync_batch_norm(self.group, self.world) if self.group is not None
+                  else contextlib.nullcontext()):
+                logits, value = self._policy(model, mb.board)
+            if cfg.mask_illegal:
+                _, _, legal = rules.move_all(mb.board)
+                logits = torch.where(legal, logits, _NEG)
+            policy_loss, value_loss, entropy, approx_kl, clip_frac = ppo_loss_terms(
+                logits, value, mb.action, mb.logprob, mb.adv, mb.ret, cfg.clip_coef,
+                self.group, self.world)
+            loss = policy_loss - cfg.ent_coef * entropy + cfg.vf_coef * value_loss
+        with profiler.span("ppo.backward"):
+            loss.backward()
+        with profiler.span("ppo.optimizer"):
+            state.optimizer.step()
         return torch.stack([loss, policy_loss, value_loss, entropy, approx_kl,
                             clip_frac]).detach()
 
@@ -475,41 +484,43 @@ class PPO:
         Returns ``(state, metrics)``, the state updated in place and the
         metrics as device scalars (no host sync)."""
         cfg = self.cfg
-        traj, last_value = self._collect_rollout(state)
+        with profiler.span("ppo.iteration", unit=state.update_idx):
+            traj, last_value = self._collect_rollout(state)
 
-        train_reward = traj.reward
-        if cfg.log2_rewards:
-            train_reward = torch.sign(train_reward) * torch.log2(1.0 + train_reward.abs())
-        train_reward = train_reward * cfg.reward_scale
-        adv, ret = returns_ops.gae(train_reward, traj.value, traj.done, last_value,
-                                   gamma=cfg.gamma, lam=cfg.gae_lambda)
-        data = UpdateBatch(board=traj.board, action=traj.action, logprob=traj.logprob,
-                           adv=adv, ret=ret)
-        metrics = self._update_epochs(state, data)
+            train_reward = traj.reward
+            if cfg.log2_rewards:
+                train_reward = torch.sign(train_reward) * torch.log2(1.0 + train_reward.abs())
+            train_reward = train_reward * cfg.reward_scale
+            with profiler.span("ppo.gae"):
+                adv, ret = returns_ops.gae(train_reward, traj.value, traj.done, last_value,
+                                           gamma=cfg.gamma, lam=cfg.gae_lambda)
+            data = UpdateBatch(board=traj.board, action=traj.action, logprob=traj.logprob,
+                               adv=adv, ret=ret)
+            metrics = self._update_epochs(state, data)
 
-        # episode statistics of the rollout (SB3's ep_info buffer)
-        done_f = traj.done.float()
-        if self.world == 1:
-            n_episodes = done_f.sum()
-            sums = ((traj.score * done_f).sum(), (traj.ep_len.float() * done_f).sum(),
-                    (traj.highest.float() * done_f).sum())
-            highest_max, reward_per_step = traj.highest.max().float(), traj.reward.mean()
-        else:
-            totals = pmesh.all_reduce(torch.stack([
-                done_f.sum(), (traj.score * done_f).sum(), (traj.ep_len.float() * done_f).sum(),
-                (traj.highest.float() * done_f).sum(), traj.reward.sum()]), self.mesh)
-            n_episodes, sums = totals[0], totals[1:4]
-            reward_per_step = totals[4] / (cfg.n_steps * cfg.n_envs)
-            highest_max = pmesh.all_reduce(traj.highest.max().float(), self.mesh, "max")
-        safe = n_episodes.clamp_min(1.0)
-        metrics.update(
-            n_episodes=n_episodes,
-            ep_return_mean=sums[0] / safe,
-            ep_len_mean=sums[1] / safe,
-            highest_tile_mean=sums[2] / safe,
-            highest_tile_max=highest_max,
-            reward_per_step=reward_per_step,
-        )
+            # episode statistics of the rollout (SB3's ep_info buffer)
+            done_f = traj.done.float()
+            if self.world == 1:
+                n_episodes = done_f.sum()
+                sums = ((traj.score * done_f).sum(), (traj.ep_len.float() * done_f).sum(),
+                        (traj.highest.float() * done_f).sum())
+                highest_max, reward_per_step = traj.highest.max().float(), traj.reward.mean()
+            else:
+                totals = pmesh.all_reduce(torch.stack([
+                    done_f.sum(), (traj.score * done_f).sum(), (traj.ep_len.float() * done_f).sum(),
+                    (traj.highest.float() * done_f).sum(), traj.reward.sum()]), self.mesh)
+                n_episodes, sums = totals[0], totals[1:4]
+                reward_per_step = totals[4] / (cfg.n_steps * cfg.n_envs)
+                highest_max = pmesh.all_reduce(traj.highest.max().float(), self.mesh, "max")
+            safe = n_episodes.clamp_min(1.0)
+            metrics.update(
+                n_episodes=n_episodes,
+                ep_return_mean=sums[0] / safe,
+                ep_len_mean=sums[1] / safe,
+                highest_tile_mean=sums[2] / safe,
+                highest_tile_max=highest_max,
+                reward_per_step=reward_per_step,
+            )
         state.update_idx += 1
         return state, metrics
 

@@ -62,6 +62,7 @@ from gym2048_tpu_torch.env.batched import _fresh_boards
 from gym2048_tpu_torch.models import ntuple, ntuple_big
 from gym2048_tpu_torch.models.ntuple import _tc_combine, stage_of_batch
 from gym2048_tpu_torch.parallel import mesh as pmesh
+from gym2048_tpu_torch.utils import profiler
 from gym2048_tpu_torch.utils.checkpoint import load_model, save_model
 
 _PENDING = ("tc_ps", "tc_pa", "tc_pc")  # delayed-TC sums, |sums|, counts
@@ -109,18 +110,20 @@ def _greedy_batch(value_fn, boards: torch.Tensor):
     v_after (B,) f32, any_legal (B,) bool)``. A board with no legal move
     takes action 0 (argmax over all ``-inf`` is the first index, as in JAX).
     """
-    b = boards.shape[0]
-    moved, scores, legal = rules.move_all(boards)
-    vals = value_fn(moved.reshape(b * 4, 4, 4)).reshape(b, 4)
-    q = torch.where(legal, scores.to(torch.float32) + vals, -torch.inf)
-    a = q.argmax(-1)
-    col = a[:, None]
-    after = moved.gather(1, col[:, :, None, None].expand(b, 1, 4, 4))[:, 0]
-    r = scores.gather(1, col)[:, 0].to(torch.float32)
-    # a masked sum, as JAX takes it: a -0.0 value comes out +0.0
-    sel = torch.arange(4, device=boards.device) == col
-    v_after = torch.where(sel, vals, 0.0).sum(-1)
-    return a.to(torch.int32), after, r, v_after, legal.any(-1)
+    with profiler.span("td.greedy"):
+        b = boards.shape[0]
+        moved, scores, legal = rules.move_all(boards)
+        with profiler.span("td.lookup"):
+            vals = value_fn(moved.reshape(b * 4, 4, 4)).reshape(b, 4)
+        q = torch.where(legal, scores.to(torch.float32) + vals, -torch.inf)
+        a = q.argmax(-1)
+        col = a[:, None]
+        after = moved.gather(1, col[:, :, None, None].expand(b, 1, 4, 4))[:, 0]
+        r = scores.gather(1, col)[:, 0].to(torch.float32)
+        # a masked sum, as JAX takes it: a -0.0 value comes out +0.0
+        sel = torch.arange(4, device=boards.device) == col
+        v_after = torch.where(sel, vals, 0.0).sum(-1)
+        return a.to(torch.int32), after, r, v_after, legal.any(-1)
 
 
 def _carousel_record(car_b, car_f, st_prev, st_next, alive, next_state, u_slot):
@@ -174,6 +177,7 @@ class TDTrainer:
                  device: str | torch.device = "cuda"):
         self.cfg = cfg = config or TDConfig()
         self.device = torch.device(device)
+        self.chunks = 0  # train_chunk calls: the unit id of their spans
         self._net = self._small = None
         if cfg.arch == "small":
             if cfg.tc_every != 1 or cfg.carousel:
@@ -272,22 +276,21 @@ class TDTrainer:
             # TD update of the PREVIOUS afterstate, whose successor is
             # `boards`: target r + V(after) if a move exists, else 0.
             # prev_valid masks just-reset envs out of deltas and counts.
-            target = torch.where(alive, r + v_after, 0.0)
-            delta = target - carry["prev_v"]
             new = dict(carry)
-            if cfg.tc and defer_tc:
-                pending = tuple(carry[p] for p in _PENDING)
-                new.update(zip(_PENDING, net.tc_accumulate(
-                    pending, carry["prev_after"], delta, valid=carry["prev_valid"])))
-            elif cfg.tc:
-                new["table"], new["tc_e"], new["tc_a"] = update_tc(
-                    table, carry["tc_e"], carry["tc_a"], carry["prev_after"], delta,
-                    alpha, valid=carry["prev_valid"])
-            else:
-                new["table"] = update_td(table, carry["prev_after"], delta, alpha,
-                                         valid=carry["prev_valid"])
-
-            next_state = rules.spawn(after, draws["spawn_val"], draws["spawn_pos"])
+            with profiler.span("td.update"):
+                target = torch.where(alive, r + v_after, 0.0)
+                delta = target - carry["prev_v"]
+                if cfg.tc and defer_tc:
+                    pending = tuple(carry[p] for p in _PENDING)
+                    new.update(zip(_PENDING, net.tc_accumulate(
+                        pending, carry["prev_after"], delta, valid=carry["prev_valid"])))
+                elif cfg.tc:
+                    new["table"], new["tc_e"], new["tc_a"] = update_tc(
+                        table, carry["tc_e"], carry["tc_a"], carry["prev_after"], delta,
+                        alpha, valid=carry["prev_valid"])
+                else:
+                    new["table"] = update_td(table, carry["prev_after"], delta, alpha,
+                                             valid=carry["prev_valid"])
 
             # episode bookkeeping: a board resets when it has no legal move
             score = score + torch.where(alive, r, 0.0)
@@ -296,19 +299,21 @@ class TDTrainer:
             done_score = torch.where(done, score, 0.0).sum()
             highest = boards.max()
 
-            fresh = _fresh_boards(draws["fresh"])
-            if cfg.carousel:
-                car_b, car_f = _carousel_record(
-                    carry["car_boards"], carry["car_filled"],
-                    stage_of_batch(boards, net.thresholds),
-                    stage_of_batch(next_state, net.thresholds),
-                    alive, next_state, draws["car_slot"])
-                fresh = _carousel_restart(car_b, car_f, fresh, draws["car_use"],
-                                          draws["car_stage"], draws["car_pick"],
-                                          cfg.carousel)
-                new["car_boards"], new["car_filled"] = car_b, car_f
-            new["boards"] = torch.where(done[:, None, None], fresh, next_state)
-            new["score"] = torch.where(done, 0.0, score)
+            with profiler.span("td.restart"):
+                next_state = rules.spawn(after, draws["spawn_val"], draws["spawn_pos"])
+                fresh = _fresh_boards(draws["fresh"])
+                if cfg.carousel:
+                    car_b, car_f = _carousel_record(
+                        carry["car_boards"], carry["car_filled"],
+                        stage_of_batch(boards, net.thresholds),
+                        stage_of_batch(next_state, net.thresholds),
+                        alive, next_state, draws["car_slot"])
+                    fresh = _carousel_restart(car_b, car_f, fresh, draws["car_use"],
+                                              draws["car_stage"], draws["car_pick"],
+                                              cfg.carousel)
+                    new["car_boards"], new["car_filled"] = car_b, car_f
+                new["boards"] = torch.where(done[:, None, None], fresh, next_state)
+                new["score"] = torch.where(done, 0.0, score)
             new["prev_after"] = after
             new["prev_v"] = v_after
             new["prev_valid"] = alive
@@ -343,11 +348,12 @@ class TDTrainer:
                     carry, s = body(carry, self._draws(gen, n))
                     stats.append(s)
                 carry = dict(carry)
-                carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
-                    carry["table"], carry["tc_e"], carry["tc_a"],
-                    *(carry[p] for p in _PENDING), alpha)
-                for p in _PENDING:
-                    carry[p].zero_()
+                with profiler.span("td.combine"):
+                    carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
+                        carry["table"], carry["tc_e"], carry["tc_a"],
+                        *(carry[p] for p in _PENDING), alpha)
+                    for p in _PENDING:
+                        carry[p].zero_()
             for p in _PENDING:
                 del carry[p]
         return carry, tuple(torch.stack(s) for s in zip(*stats))
@@ -361,15 +367,18 @@ class TDTrainer:
         once per move. The returned state is new, except its generator,
         which is the given state's and has advanced (JAX donates the
         state)."""
-        alpha = torch.as_tensor(alpha, dtype=torch.float32)
-        new_state, (n_done, done_score, highest) = self._scan_steps(
-            dict(state), alpha, self.cfg.chunk_steps)
-        episodes = n_done.sum()
-        metrics = {
-            "episodes": episodes,
-            "ep_score_mean": done_score.sum() / episodes.clamp(min=1.0),
-            "highest_exp": highest.max().to(torch.int32),
-        }
+        self.chunks += 1
+        with profiler.span("td.chunk", unit=self.chunks):
+            profiler.count("td.steps", self.cfg.chunk_steps)
+            alpha = torch.as_tensor(alpha, dtype=torch.float32)
+            new_state, (n_done, done_score, highest) = self._scan_steps(
+                dict(state), alpha, self.cfg.chunk_steps)
+            episodes = n_done.sum()
+            metrics = {
+                "episodes": episodes,
+                "ep_score_mean": done_score.sum() / episodes.clamp(min=1.0),
+                "highest_exp": highest.max().to(torch.int32),
+            }
         return new_state, metrics
 
     def make_sharded_chunk(self, mesh) -> ShardedChunk:
