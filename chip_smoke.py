@@ -29,7 +29,12 @@ counts:
   must leave every leaf of the state identical; the learner's rate is
   measured in two configs, profiled, and checked to learn: 50 chunks of the
   unstaged 4x6 TC config of ``docs/curves/td_4x6_tc_run.jsonl`` must reach
-  an episode score inside the band that the JAX runs bracket;
+  an episode score inside the band that the JAX runs bracket. Each step's
+  tail (everything after the greedy search) is one CUDA graph replay on
+  the card; phase 15g holds two chunks of it against the eager step, bit
+  for bit in deterministic mode (also for the small net's and bench.py's
+  learners), profiles both and times them in turns (``--td-tail`` runs
+  that phase alone);
 * the small 17 x 4-cell TD learner (the learner's default ``--arch
   small``): the config of ``docs/curves/ntuple_table_tc1b.pkl`` at full
   width (8192 envs, TC, the 1,419,857-entry table), one 64-step chunk, one
@@ -232,6 +237,18 @@ TD_LEARN = dict(n_envs=8192, chunk_steps=64, arch="4x6", tc=True, alpha=1.0,
 TD_LEARN_BAND = (24_800.0, 65_000.0)
 TD_REPLAY_STEPS = 16       # the deterministic kernel-vs-plain chunk
 TD_TIMED_CHUNKS = 3
+# Phase 15g, the step tail as a CUDA graph replay against the eager step:
+# chunks each path runs from one state, and timing rounds in turns
+TD_TAIL_CHUNKS, TD_TAIL_ROUNDS = 2, 3
+# the learners of bench.py's bench_td (the small net, split lookup, no TC)
+# and bench_td_big (4x6 TC, unstaged, TC on every step)
+TD_BENCH_SMALL = dict(n_envs=8192, chunk_steps=64, alpha=0.1, alpha_final=0.1,
+                      update_impl="mxu", value_impl="mxu")
+TD_BENCH_BIG = dict(n_envs=8192, chunk_steps=16, arch="4x6", tc=True, alpha=1.0,
+                    alpha_final=1.0, init_value=0.0)
+# the host calls that start device work, counted a step in phase 15g
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
 
 # The small net (the learner's default arch): docs/curves/ntuple_table_tc1b.pkl's
 # config (total_steps excepted), on the default lookup ("auto", the exact one).
@@ -722,6 +739,67 @@ def timed_chunks(trainer, state, chunks: int):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return state, secs, metrics
+
+
+def scan_chunks(trainer, scan, state: dict, chunks: int):
+    """``chunks`` chunks of ``scan`` (the trainer's ``_scan_replayed`` or
+    ``_scan_eager``) from a copy of ``state`` at the config's ``alpha``, as
+    ``train_chunk`` runs them, each host-timed to a device sync; returns the
+    state, each chunk's stacked stats and seconds."""
+    state = clone_state(state)
+    alpha = torch.as_tensor(trainer.cfg.alpha, dtype=torch.float32)
+    stats, secs = [], []
+    for _ in range(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, s = scan(state, alpha, trainer.cfg.chunk_steps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        stats.append(s)
+    return state, stats, secs
+
+
+def change_gap(state: dict, a: dict, b: dict) -> tuple[float, float]:
+    """The benchmark's ``change_gap`` of ``b`` against ``a`` (the worst of
+    ``table``, ``tc_e`` and ``tc_a`` by the gap between the norms of each
+    leaf's change from ``state``; ``benchmark/entries/``) and td-4x6-tc's
+    limit on it."""
+    from benchmark.entries.base import leaf_gap, norm64
+    from benchmark.entries.td_chunk import LEAVES
+
+    def norms(x):
+        return {k: norm64(x[k] - state[k]) for k in LEAVES}
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                           "workloads", "td-4x6-tc.json")) as f:
+        cell = json.load(f)
+    return leaf_gap(norms(b), norms(a)), cell["limits"]["change_gap"]
+
+
+def launch_profile(fn, steps: int) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (``steps`` TD steps), read
+    from the raw events: device operations a step, the host calls that start
+    device work (``LAUNCH_CALLS``) a step and the graph launches among them,
+    the device's busy seconds and the wall seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device, calls = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                device.append(e.duration_ns())
+        elif e.name().startswith(LAUNCH_CALLS):
+            calls.append(e.name())
+    graph_launches = sum(1 for name in calls if name.startswith("cudaGraphLaunch"))
+    return {"ops": len(device) / steps, "graph_launches": graph_launches / steps,
+            "launches": len(calls) / steps, "busy_s": sum(device) / 1e9, "wall_s": wall}
 
 
 def cnn_flops_per_board(filters: int, blocks: int) -> float:
@@ -1742,6 +1820,140 @@ class Smoke:
                 f"peak {peak / 2**30:.3f} GiB allocated ({(peak - base) / 2**30:.3f} GiB above "
                 f"the {base / 2**30:.3f} GiB held before), {per_chunk:.0f} gather launches per "
                 f"chunk, ep_score_mean {m['ep_score_mean'].item():.1f}")
+
+    # 15g
+    def td_tail(self) -> str:
+        """The TD step's tail as one CUDA graph replay (``_scan_replayed``)
+        against the eager step (``_scan_eager``, the step of
+        ``_chunk_body``), from one state after a chunk, for the flagship,
+        the learner of phase 17 (tc1b) and those of bench.py's ``bench_td``
+        and ``bench_td_big``, whose updates stay eager: in deterministic
+        mode two chunks of each leave every leaf, the generator and every
+        stat identical; chunk seconds of each in turns. For the flagship
+        also: the change gap in the default mode under td-4x6-tc's limit,
+        one chunk of each profiled (device operations, host launches a step,
+        the replay counter), and the replayed chunk's host time a step."""
+        from gym2048_tpu_torch.train import td
+
+        parts = []
+        for label, config in (("flagship", TD_FLAGSHIP), ("tc1b", TD_SMALL),
+                              ("bench_td", TD_BENCH_SMALL), ("bench_td_big", TD_BENCH_BIG)):
+            tr = td.TDTrainer(td.TDConfig(**config), device=self.dev)
+            state, _, _ = scan_chunks(tr, tr._scan_eager, tr.init_state(), 1)
+            torch.use_deterministic_algorithms(True)
+            try:
+                eager, es, _ = scan_chunks(tr, tr._scan_eager, state, TD_TAIL_CHUNKS)
+                replayed, rs, rsecs = scan_chunks(tr, tr._scan_replayed, state, TD_TAIL_CHUNKS)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            check(tr._tail.graph is not None, f"{label}: no graph was captured")
+            bad = state_diffs(eager, replayed)
+            check(not bad, f"{label}: the replayed chunks differ from the eager ones in {bad}")
+            check(all(torch.equal(a, b) for x, y in zip(es, rs) for a, b in zip(x, y)),
+                  f"{label}: the replayed chunks' stats differ")
+            del eager, replayed
+            parts.append(f"{label}: deterministic, {TD_TAIL_CHUNKS} chunks of "
+                         f"{tr.cfg.chunk_steps} steps identical in all {len(state)} leaves "
+                         f"and the stats (the first replayed chunk, capture included, "
+                         f"{rsecs[0]:.3f} s, the next {rsecs[-1]:.3f} s); "
+                         + self.tail_turns(tr, state))
+            if label == "flagship":
+                parts.append(self.tail_flagship(tr, state))
+            del tr, state
+        return "; ".join(parts) + f"; on {self.smi}"
+
+    @staticmethod
+    def tail_turns(tr, state: dict) -> str:
+        """Seconds of one chunk of ``tr`` from ``state``, eager and
+        replayed in turns (the default mode)."""
+        secs = {"eager": [], "replayed": []}
+        for k in range(TD_TAIL_ROUNDS):
+            for name in (("eager", "replayed") if k % 2 == 0 else ("replayed", "eager")):
+                scan = tr._scan_eager if name == "eager" else tr._scan_replayed
+                secs[name] += scan_chunks(tr, scan, state, 1)[2]
+        med = {k: float(np.median(v)) for k, v in secs.items()}
+        work = tr.cfg.chunk_steps * tr.cfg.n_envs
+        return (f"chunk seconds in turns (median of {TD_TAIL_ROUNDS}), eager "
+                f"{med['eager']:.4f} ({', '.join(f'{x:.4f}' for x in secs['eager'])}), "
+                f"replayed {med['replayed']:.4f} "
+                f"({', '.join(f'{x:.4f}' for x in secs['replayed'])}): "
+                f"{work / med['eager']:.0f} and {work / med['replayed']:.0f} steps/s, "
+                f"x{med['eager'] / med['replayed']:.3f}")
+
+    def tail_flagship(self, tr, state: dict) -> str:
+        """Phase 15g's flagship readings: the default mode's change gap,
+        one profiled chunk of each path and the replayed chunk's host time
+        a step."""
+        from gym2048_tpu_torch.utils import profiler
+
+        eager, _, _ = scan_chunks(tr, tr._scan_eager, state, TD_TAIL_CHUNKS)
+        replayed, _, _ = scan_chunks(tr, tr._scan_replayed, state, TD_TAIL_CHUNKS)
+        gap, limit = change_gap(state, eager, replayed)
+        check(gap <= limit, f"default mode: change gap {gap:.3e}")
+        differ = state_diffs(eager, replayed)
+        del eager, replayed
+        steps = tr.cfg.chunk_steps
+        prof = {}
+        alpha = torch.as_tensor(tr.cfg.alpha, dtype=torch.float32)
+        for name, scan in (("eager", tr._scan_eager), ("replayed", tr._scan_replayed)):
+            start = clone_state(state)
+            profiler.clear()
+            prof[name] = launch_profile(lambda: scan(start, alpha, steps), steps)
+            replays = profiler.summary()["counters"].get("td.tail_replays", 0)
+            check(replays == (steps if name == "replayed" else 0),
+                  f"{name}: {replays} tail replays counted in {steps} steps")
+        profiler.clear()
+        e, r = prof["eager"], prof["replayed"]
+        check(r["graph_launches"] == 1 and r["ops"] >= e["ops"] - 5,
+              f"the profiler lists {r['ops']:.1f} device operations a step against the "
+              f"eager step's {e['ops']:.1f}, {r['graph_launches']:.2f} graph launches")
+        host = self.tail_host_us(tr, state)
+        return (f"flagship default mode: change gap {gap:.3e} (limit {limit}), "
+                f"leaves that differ {differ}; profiled chunk, eager / replayed: device "
+                f"operations a step {e['ops']:.1f} / {r['ops']:.1f} (the graph's listed one by "
+                f"one), host launches a step {e['launches']:.1f} / {r['launches']:.1f} "
+                f"({r['graph_launches']:.0f} a graph launch), device busy {e['busy_s']:.4f} / "
+                f"{r['busy_s']:.4f} s of {e['wall_s']:.4f} / {r['wall_s']:.4f} s; untraced "
+                f"host us a step of the replayed chunk: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+
+    @staticmethod
+    def tail_host_us(tr, state: dict) -> dict[str, float]:
+        """Host microseconds a step of one replayed chunk of ``tr`` from a
+        copy of ``state``, with no profiler: in the greedy search, in the
+        tail's replay (its copies and the graph launch) and in the rest of
+        the chunk (the draws, the combines, the loads and copies out)."""
+        from gym2048_tpu_torch.train import td
+
+        spent = {"greedy": 0.0, "replay": 0.0}
+
+        def timed(fn, key):
+            def wrapper(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                spent[key] += time.perf_counter() - t0
+                return out
+            return wrapper
+
+        greedy, tail = td._greedy_batch, tr._tail
+        td._greedy_batch = timed(greedy, "greedy")
+        tail.replay = timed(tail.replay, "replay")
+        start = clone_state(state)
+        alpha = torch.as_tensor(tr.cfg.alpha, dtype=torch.float32)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._scan_replayed(start, alpha, tr.cfg.chunk_steps)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        finally:
+            td._greedy_batch = greedy
+            del tail.replay
+        check(tr._tail is tail, "the timed chunk built a new tail")
+        steps = tr.cfg.chunk_steps
+        out = {k: 1e6 * v / steps for k, v in spent.items()}
+        out["rest"] = 1e6 * host / steps - sum(out.values())
+        return out
 
     # 15d
     def td_throughput(self) -> str:
@@ -3161,6 +3373,7 @@ def main() -> int:
     smoke.run("15d", "td throughput", smoke.td_throughput)
     smoke.run("15e", "td profile", smoke.td_profile)
     smoke.run("15f", "td learning", smoke.td_learning)
+    smoke.run("15g", "td tail replayed vs eager", smoke.td_tail)
     smoke.run("17a", "td small path", smoke.td_small_path)
     smoke.run("17b", "td small gather", smoke.td_small_gather)
     smoke.run("17c", "td small kernel vs plain", smoke.td_small_replay)
@@ -3199,6 +3412,16 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def td_tail_only() -> int:
+    """``--td-tail``: the device, the build and phase 15g alone."""
+    smoke = Smoke()
+    smoke.run("1", "device", smoke.device)
+    smoke.run("2", "build", smoke.build)
+    smoke.run("15g", "td tail replayed vs eager", smoke.td_tail)
+    print(smoke.smi, flush=True)
     return 0
 
 
@@ -3505,6 +3728,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                         metavar="ROUNDS",
                         help="instead of the phases, time traced TD chunks and PPO "
                              "iterations with and without the program's spans")
+    parser.add_argument("--td-tail", action="store_true",
+                        help="instead of all the phases, run phases 1, 2 and 15g (the TD "
+                             "step's tail replayed against the eager step)")
     parser.add_argument("--dp-worker", metavar="OUTDIR",
                         help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
@@ -3518,4 +3744,6 @@ if __name__ == "__main__":
         sys.exit(gather_ab(args.gather_ab, args.rounds))
     if args.span_cost and torch.cuda.is_available():
         sys.exit(span_cost(args.span_cost))
+    if args.td_tail and torch.cuda.is_available():
+        sys.exit(td_tail_only())
     sys.exit(main())

@@ -32,7 +32,10 @@ train state under ``"generator"`` and advances as the state is trained.
 :meth:`TDTrainer._draws` draws each step's uniforms in one call, and the
 step body takes them as an argument, so the body can be fed the numbers
 JAX drew. The steps of a chunk are a Python loop with no host sync;
-:meth:`TDTrainer.learn` syncs once per logged chunk.
+:meth:`TDTrainer.learn` syncs once per logged chunk. On the card each
+step's tail, everything after the greedy search but an update that writes
+the table, is one CUDA graph replay (:class:`_StepTail`): the same
+operations as the eager step, launched at once.
 
 Data parallel (:meth:`TDTrainer.make_sharded_chunk`, ``learn(mesh=...)``,
 ``--sharded``): chunk-synchronous local learners over the ``data`` axis of
@@ -66,6 +69,7 @@ from gym2048_tpu_torch.utils import profiler
 from gym2048_tpu_torch.utils.checkpoint import load_model, save_model
 
 _PENDING = ("tc_ps", "tc_pa", "tc_pc")  # delayed-TC sums, |sums|, counts
+_WARMUP = 2  # eager runs of a step's tail before its capture
 _SYNC_EVERY = 64  # play_greedy's moves between host checks for a live game
 
 
@@ -157,6 +161,123 @@ def _carousel_restart(car_b, car_f, fresh, u_use, u_stage, u_pick, p):
     return torch.where(ok[:, None, None], car_b[s_pick, j_pick], fresh)
 
 
+def _split_draws(u: torch.Tensor) -> dict:
+    """:meth:`TDTrainer._draws`' dict of views of its ``(rows, n)`` draw
+    (10 rows with the carousel, else 6)."""
+    draws = {"spawn_val": u[0], "spawn_pos": u[1], "fresh": u[2:6].T}
+    if u.shape[0] == 10:
+        draws.update(car_slot=u[6], car_use=u[7], car_stage=u[8], car_pick=u[9])
+    return draws
+
+
+class _StepTail:
+    """A TD step after its greedy search, on static buffers: with delayed
+    TC the update (the TD error and the scatter-accumulate into the pending
+    sums), then the episode bookkeeping, the spawn, the fresh boards, the
+    carousel and the reset, the step's leaves written into :attr:`carry`
+    and its stats into row ``step`` of :attr:`stats`. On a CUDA device it
+    is captured once as a CUDA graph (after :data:`_WARMUP` eager runs on a
+    side stream) and each :meth:`replay` launches the graph; elsewhere a
+    replay calls the same code.
+
+    The buffers: :attr:`u`, the step's draw (:meth:`TDTrainer._draws`
+    writes it); the inputs ``after``, ``r``, ``v_after``, ``alive`` that a
+    replay copies in; :attr:`carry`, the step's leaves and, with delayed
+    TC, the pending sums, which stay zero between windows (the combine
+    zeroes them); :attr:`stats`, ``(n_done, done_score, highest)`` of each
+    step. The graph reads no table and no host scalar: the update of a
+    learner without delayed TC writes the table, and stays outside."""
+
+    def __init__(self, carry: dict, length: int, update, restart):
+        boards = carry["boards"]
+        dev, n = boards.device, boards.shape[0]
+        self.key = self.key_of(carry, length)
+        self.update, self.restart = update, restart
+        self.carry = {k: torch.zeros_like(carry[k]) for k in _STEP_KEYS & carry.keys()}
+        if update is not None:
+            self.carry.update((p, torch.zeros_like(carry["table"])) for p in _PENDING)
+        self.u = torch.zeros((10 if "car_boards" in carry else 6, n), device=dev)
+        self.draws = _split_draws(self.u)
+        self.inputs = (torch.zeros_like(boards), torch.zeros(n, device=dev),
+                       torch.zeros(n, device=dev), torch.zeros(n, dtype=torch.bool, device=dev))
+        self.stats = (torch.zeros(length, device=dev), torch.zeros(length, device=dev),
+                      torch.zeros(length, dtype=boards.dtype, device=dev))
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.dirty = False  # pending sums left by a scan that did not end
+        self.graph = self._capture() if dev.type == "cuda" else None
+
+    @staticmethod
+    def key_of(carry: dict, length: int) -> tuple:
+        """What a tail is built for: the carry's device, envs and leaves,
+        the step count and the deterministic mode (read at capture)."""
+        return (carry["boards"].device, carry["boards"].shape[0], length,
+                tuple(sorted(_STEP_KEYS & carry.keys())),
+                torch.are_deterministic_algorithms_enabled())
+
+    def _run(self) -> None:
+        """The tail once, on the buffers (what the graph holds)."""
+        after, r, v_after, alive = self.inputs
+        new = dict(self.carry)
+        if self.update is not None:
+            self.update(self.carry, new, r, v_after, alive)
+        stats = self.restart(self.carry, new, self.draws, after, r, v_after, alive)
+        for k, buf in self.carry.items():
+            if new[k] is not buf:
+                buf.copy_(new[k])
+        for buf, s in zip(self.stats, stats):
+            buf.index_copy_(0, self.step, s.reshape(1))
+        self.step.add_(1)
+
+    def _capture(self) -> torch.cuda.CUDAGraph:
+        current = torch.cuda.current_stream(self.u.device)
+        side = torch.cuda.Stream(self.u.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP):
+                self.step.zero_()
+                self._run()
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._run()
+        for p in _PENDING:  # the warm-up's sums
+            if p in self.carry:
+                self.carry[p].zero_()
+        return graph
+
+    def load(self, carry: dict) -> dict:
+        """Copy ``carry``'s step leaves into the buffers for a scan;
+        returns the buffers (the pending sums among them)."""
+        for k, buf in self.carry.items():
+            if k in _PENDING:
+                if self.dirty:
+                    buf.zero_()
+            else:
+                buf.copy_(carry[k])
+        self.step.zero_()
+        self.dirty = True
+        return self.carry
+
+    def replay(self, after, r, v_after, alive) -> None:
+        """One step's tail on the greedy search's results."""
+        for buf, x in zip(self.inputs, (after, r, v_after, alive)):
+            buf.copy_(x)
+        if self.graph is None:
+            self._run()
+        else:
+            self.graph.replay()
+            profiler.count("td.tail_replays", 1)
+
+    def unload(self, state: dict) -> tuple[dict, tuple]:
+        """The scan's result: ``state`` with copies of the step leaves in
+        place of the buffers and without the pending sums, and copies of
+        the stats, so that the next scan's replays change neither."""
+        self.dirty = False
+        out = {k: v for k, v in state.items() if k not in _PENDING}
+        out.update((k, buf.clone()) for k, buf in self.carry.items() if k not in _PENDING)
+        return out, tuple(s.clone() for s in self.stats)
+
+
 @dataclasses.dataclass
 class TDLogEntry:
     steps: int
@@ -179,6 +300,7 @@ class TDTrainer:
         self.device = torch.device(device)
         self.chunks = 0  # train_chunk calls: the unit id of their spans
         self._net = self._small = None
+        self._tail = None  # the _StepTail of _scan_replayed
         if cfg.arch == "small":
             if cfg.tc_every != 1 or cfg.carousel:
                 raise ValueError("tc_every/carousel are big-net staged-training features")
@@ -243,40 +365,34 @@ class TDTrainer:
                                               device=dev)
         return state
 
-    def _draws(self, generator: torch.Generator, n: int) -> dict:
+    def _draws(self, generator: torch.Generator, n: int, out: torch.Tensor | None = None
+               ) -> dict:
         """One step's uniforms for ``n`` envs, in one draw: the spawn's value
         and position ``(n,)`` each, the fresh boards' ``(n, 4)``, and with
-        the carousel its record slot and its use, stage and slot draws."""
+        the carousel its record slot and its use, stage and slot draws.
+        ``out``, a ``(rows, n)`` buffer, takes the draw in place of a new
+        tensor (the same numbers)."""
         rows = 10 if self.cfg.carousel else 6
-        u = torch.rand((rows, n), generator=generator, device=generator.device)
-        draws = {"spawn_val": u[0], "spawn_pos": u[1], "fresh": u[2:6].T}
-        if self.cfg.carousel:
-            draws.update(car_slot=u[6], car_use=u[7], car_stage=u[8], car_pick=u[9])
-        return draws
+        return _split_draws(torch.rand((rows, n), generator=generator,
+                                       device=generator.device, out=out))
 
-    def _chunk_body(self, alpha, defer_tc: bool = False):
-        """The step: ``body(carry, draws) -> (carry, (n_done, done_score,
-        highest))``, with ``draws`` as :meth:`_draws` returns them.
-
-        ``defer_tc``: scatter-accumulate the TC statistics into the carried
-        ``tc_ps`` / ``tc_pa`` / ``tc_pc`` buffers instead of applying the
-        table-sized combine (the inner step of delayed TC)."""
+    def _update(self, alpha, defer_tc: bool):
+        """The step's TD update: ``update(carry, new, r, v_after, alive)``
+        writes into ``new`` the table (``tc_e``, ``tc_a``), or with
+        ``defer_tc`` the pending sums, that the update of ``carry``'s
+        previous afterstate gives. The function holds the config and the
+        network, not the trainer, which a :class:`_StepTail` that keeps it
+        would keep alive."""
         cfg, net = self.cfg, self._net
         if net is not None:
-            values, update_td, update_tc = net, net.td_update, net.td_update_tc
+            update_td, update_tc = net.td_update, net.td_update_tc
         else:
-            values, update_td, update_tc = self._small, ntuple.td_update, ntuple.td_update_tc
+            update_td, update_tc = ntuple.td_update, ntuple.td_update_tc
 
-        def body(carry: dict, draws: dict):
-            table, boards, score = carry["table"], carry["boards"], carry["score"]
-            # the small net's "mxu" modes split the table once a step, as in JAX
-            value_fn = values.make_value_fn(table)
-            _, after, r, v_after, alive = _greedy_batch(value_fn, boards)
-
-            # TD update of the PREVIOUS afterstate, whose successor is
-            # `boards`: target r + V(after) if a move exists, else 0.
+        def update(carry: dict, new: dict, r, v_after, alive) -> None:
+            # TD update of the PREVIOUS afterstate, whose successor is the
+            # searched boards: target r + V(after) if a move exists, else 0.
             # prev_valid masks just-reset envs out of deltas and counts.
-            new = dict(carry)
             with profiler.span("td.update"):
                 target = torch.where(alive, r + v_after, 0.0)
                 delta = target - carry["prev_v"]
@@ -286,14 +402,27 @@ class TDTrainer:
                         pending, carry["prev_after"], delta, valid=carry["prev_valid"])))
                 elif cfg.tc:
                     new["table"], new["tc_e"], new["tc_a"] = update_tc(
-                        table, carry["tc_e"], carry["tc_a"], carry["prev_after"], delta,
-                        alpha, valid=carry["prev_valid"])
+                        carry["table"], carry["tc_e"], carry["tc_a"], carry["prev_after"],
+                        delta, alpha, valid=carry["prev_valid"])
                 else:
-                    new["table"] = update_td(table, carry["prev_after"], delta, alpha,
+                    new["table"] = update_td(carry["table"], carry["prev_after"], delta, alpha,
                                              valid=carry["prev_valid"])
 
+        return update
+
+    def _restart(self):
+        """The rest of the step after its update: ``restart(carry, new,
+        draws, after, r, v_after, alive) -> (n_done, done_score, highest)``
+        does the episode bookkeeping, spawns, restarts finished games
+        (fresh or from the carousel) and writes the boards, scores, the
+        carousel and the ``prev_*`` leaves into ``new``. The function holds
+        the config and the network, not the trainer (as :meth:`_update`)."""
+        cfg, net = self.cfg, self._net
+
+        def restart(carry: dict, new: dict, draws: dict, after, r, v_after, alive):
+            boards = carry["boards"]
             # episode bookkeeping: a board resets when it has no legal move
-            score = score + torch.where(alive, r, 0.0)
+            score = carry["score"] + torch.where(alive, r, 0.0)
             done = ~alive
             n_done = done.sum().to(torch.float32)
             done_score = torch.where(done, score, 0.0).sum()
@@ -317,46 +446,125 @@ class TDTrainer:
             new["prev_after"] = after
             new["prev_v"] = v_after
             new["prev_valid"] = alive
-            return new, (n_done, done_score, highest)
+            return n_done, done_score, highest
+
+        return restart
+
+    def _values(self):
+        return self._net if self._net is not None else self._small
+
+    def _chunk_body(self, alpha, defer_tc: bool = False):
+        """The step: ``body(carry, draws) -> (carry, (n_done, done_score,
+        highest))``, with ``draws`` as :meth:`_draws` returns them.
+
+        ``defer_tc``: scatter-accumulate the TC statistics into the carried
+        ``tc_ps`` / ``tc_pa`` / ``tc_pc`` buffers instead of applying the
+        table-sized combine (the inner step of delayed TC)."""
+        values = self._values()
+        update, restart = self._update(alpha, defer_tc), self._restart()
+
+        def body(carry: dict, draws: dict):
+            # the small net's "mxu" modes split the table once a step, as in JAX
+            value_fn = values.make_value_fn(carry["table"])
+            _, after, r, v_after, alive = _greedy_batch(value_fn, carry["boards"])
+            new = dict(carry)
+            update(carry, new, r, v_after, alive)
+            return new, restart(carry, new, draws, after, r, v_after, alive)
 
         return body
+
+    @staticmethod
+    def _combine(carry: dict, alpha) -> None:
+        """The delayed-TC combine of the pending sums into ``carry``'s
+        table, ``tc_e`` and ``tc_a``, then the sums zeroed."""
+        with profiler.span("td.combine"):
+            carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
+                carry["table"], carry["tc_e"], carry["tc_a"],
+                *(carry[p] for p in _PENDING), alpha)
+            for p in _PENDING:
+                carry[p].zero_()
 
     def _scan_steps(self, carry: dict, alpha, length: int):
         """``length`` steps, each with its draws from the carry's generator.
         With ``cfg.tc_every > 1`` (delayed TC) the TC statistics accumulate
-        in table-sized pending buffers that live only inside this call, and
-        the combine runs at the end of every window of ``tc_every`` steps.
-        Returns the carry and the per-step stats stacked ``(length,)``."""
-        cfg = self.cfg
+        in table-sized pending buffers, and the combine runs at the end of
+        every window of ``tc_every`` steps. Returns a new carry (the given
+        one's generator, advanced) and the per-step stats stacked
+        ``(length,)``. On a CUDA device each step's tail is one CUDA graph
+        replay (:meth:`_scan_replayed`), elsewhere the steps run eagerly
+        (:meth:`_scan_eager`); both give the same numbers."""
+        if carry["boards"].is_cuda:
+            return self._scan_replayed(carry, alpha, length)
+        return self._scan_eager(carry, alpha, length)
+
+    @property
+    def _defer_tc(self) -> bool:
+        """Delayed TC: the TC statistics accumulate between combines."""
+        return self.cfg.tc and self.cfg.tc_every > 1
+
+    def _windows(self, length: int) -> int:
+        """Steps between delayed-TC combines (``length`` without delayed TC)."""
+        if not self._defer_tc:
+            return length
+        k = self.cfg.tc_every
+        if length % k:
+            raise ValueError(f"{length} steps do not divide into windows of {k}")
+        return k
+
+    def _scan_eager(self, carry: dict, alpha, length: int):
+        """:meth:`_scan_steps` step by step through :meth:`_chunk_body`,
+        the pending buffers of delayed TC made for this call alone."""
         gen = carry["generator"]
         n = carry["boards"].shape[0]
-        stats = []
-        if not (cfg.tc and cfg.tc_every > 1):
-            body = self._chunk_body(alpha)
-            for _ in range(length):
-                carry, s = body(carry, self._draws(gen, n))
-                stats.append(s)
-        else:
-            k = cfg.tc_every
-            if length % k:
-                raise ValueError(f"{length} steps do not divide into windows of {k}")
-            body = self._chunk_body(alpha, defer_tc=True)
-            carry = dict(carry)
+        k, defer = self._windows(length), self._defer_tc
+        body = self._chunk_body(alpha, defer_tc=defer)
+        carry = dict(carry)
+        if defer:
             carry.update((p, torch.zeros_like(carry["table"])) for p in _PENDING)
-            for _ in range(length // k):
-                for _ in range(k):
-                    carry, s = body(carry, self._draws(gen, n))
-                    stats.append(s)
-                carry = dict(carry)
-                with profiler.span("td.combine"):
-                    carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
-                        carry["table"], carry["tc_e"], carry["tc_a"],
-                        *(carry[p] for p in _PENDING), alpha)
-                    for p in _PENDING:
-                        carry[p].zero_()
-            for p in _PENDING:
-                del carry[p]
+        stats = []
+        for t in range(length):
+            carry, s = body(carry, self._draws(gen, n))
+            stats.append(s)
+            if defer and (t + 1) % k == 0:
+                self._combine(carry, alpha)
+        for p in _PENDING:
+            carry.pop(p, None)
         return carry, tuple(torch.stack(s) for s in zip(*stats))
+
+    def _scan_replayed(self, carry: dict, alpha, length: int):
+        """:meth:`_scan_steps` with each step's tail on the static buffers
+        of a :class:`_StepTail`: the draw into its buffer and the greedy
+        search run eagerly (so do the update and its ``alpha`` without
+        delayed TC, where the step writes the table), then the tail, one
+        CUDA graph replay on the card (a plain call elsewhere). The combine
+        of delayed TC runs eagerly between the windows. The tail is built
+        at the first call and again when the shapes, the step count or the
+        deterministic mode change; the carry's leaves are copied into it at
+        the start and out of it at the end."""
+        k, defer = self._windows(length), self._defer_tc
+        key = _StepTail.key_of(carry, length)
+        if self._tail is None or self._tail.key != key:
+            self._tail = None  # the old graph and buffers go first
+            self._tail = _StepTail(carry, length, self._update(None, True) if defer else None,
+                                   self._restart())
+        tail = self._tail
+        state = dict(carry)
+        state.update(tail.load(carry))
+        gen = carry["generator"]
+        n = carry["boards"].shape[0]
+        values = self._values()
+        update = None if defer else self._update(alpha, False)
+        for t in range(length):
+            self._draws(gen, n, out=tail.u)
+            value_fn = values.make_value_fn(state["table"])
+            _, after, r, v_after, alive = _greedy_batch(value_fn, state["boards"])
+            if update is not None:
+                update(state, state, r, v_after, alive)
+            with profiler.span("td.tail"):
+                tail.replay(after, r, v_after, alive)
+            if defer and (t + 1) % k == 0:
+                self._combine(state, alpha)
+        return tail.unload(state)
 
     def train_chunk(self, state: dict, alpha):
         """``cfg.chunk_steps`` TD steps over all envs; returns ``(state,
@@ -454,6 +662,8 @@ class TDTrainer:
 # shape: a replicated leaf can happen to have the batch's length.
 _BATCH_KEYS = frozenset({"boards", "score", "prev_after", "prev_v", "prev_valid"})
 _SLOT_KEYS = frozenset({"car_boards", "car_filled"})
+# the leaves a step writes, besides the table and its TC accumulators
+_STEP_KEYS = _BATCH_KEYS | _SLOT_KEYS
 # the additive leaves that the sharded chunk merges
 _MERGED = ("table", "tc_e", "tc_a")
 
