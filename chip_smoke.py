@@ -48,8 +48,13 @@ counts:
   2, whose first 128 moves are replayed with the plain lookup.
 
 Then the ``ops`` transforms (observation encoders, augmentation, returns)
-on the card must equal their CPU results, and the CNN path (phases 19a-19e:
-the forward, PPO, BC, the evaluators) runs on the card.
+on the card must equal their CPU results, and the CNN path (phases 19a-19f:
+the forward, PPO, BC, the evaluators) runs on the card. Each PPO SGD step
+is one CUDA graph replay on the card; phase 19f holds two iterations of it
+against the eager step (the same arithmetic, deterministic algorithms,
+within a few roundings, while a replay of stale inputs or a learning rate
+one step late fails), times both in turns and profiles both
+(``--ppo-sgd`` runs that phase alone).
 
 Last, the shell (phase 20, path "shell", none of our kernels): the native
 engine built with ``g++`` and held against ``rules_np`` and ``core.rules``;
@@ -283,6 +288,29 @@ PPO_TIMED_ITERATIONS = 3
 # The profiled iteration's n_steps (production, reference): its rollout steps
 # and SGD steps both scale with n_steps, so kernels an iteration scale too
 PPO_PROFILE_STEPS = (8, 32)
+# Phase 19f, PPO's SGD step as a CUDA graph replay against the eager step. The
+# check runs the production shape from one seed in f32 with TF32 off and
+# torch's deterministic algorithms, the learning rate annealed to 0 over its
+# PPO_SGD_ITERATIONS iterations (256 SGD steps), so that a rate written one
+# step late moves every update by 1/256 of the first rate or more. Both paths
+# run the same Adam (Optimizer.advance and .apply), and Adam, which divides
+# each update by the gradient's running scale, carries a single rounding, as
+# it carries the order of a nondeterministic reduction, to a 1e-4 gap of a
+# step's loss and a 1.7e-2 change gap within two iterations (two eager runs
+# in the default mode, on an H100 80GB HBM3). With fixed reduction orders
+# nothing but the graph's buffers differs, so the tolerances are a few
+# roundings: a step's loss within 1e-6 of its magnitude (the first iteration,
+# whose rollout both share) and each leaf's change after both iterations
+# within 1e-5 (the benchmark's change gap). A replay of stale inputs (another minibatch: ~1e-2 apart) or a rate
+# one step late (each update 0.4-100% off, a change gap of ~5e-3) lies far
+# outside; the phase plants both faults and requires that each fail. The
+# graphed path against the eager one in the cell's config (bf16, the default
+# mode) is held to the cell's limits; the timing rounds run the cell's
+# config, each path in turns.
+PPO_SGD_ITERATIONS, PPO_SGD_ROUNDS = 2, 3
+PPO_SGD_CHECK = dict(PPO_PRODUCTION, total_timesteps=PPO_SGD_ITERATIONS * 4096 * 128,
+                     anneal_lr=True, seed=SEED)
+PPO_SGD_LOSS_TOL, PPO_SGD_CHANGE_TOL = 1e-6, 1e-5
 # docs/curves/ppo_tpu_config.jsonl: the CLI at the commit that logged it (f32:
 # it had no --bf16; the global shuffle: it passed no shuffle_mode) with
 # --n-envs 4096 --n-steps 128 --batch-size 16384 --log2-rewards (its
@@ -725,6 +753,98 @@ def plain_lookup():
         yield
     finally:
         ntuple_big.gather_values, ntuple.gather_values = saved
+
+
+@contextlib.contextmanager
+def sgd_fault(name: str):
+    """Within this block a fault planted in PPO's graphed SGD step (phase
+    19f): ``"stale inputs"``, each replay on the minibatch copied in at the
+    capture; ``"late rate"``, each replay's learning rate the one of the
+    step before."""
+    from gym2048_tpu_torch.train import ppo
+
+    if name == "stale inputs":
+        owner, attr, orig = ppo._SgdGraph, "load", ppo._SgdGraph.load
+
+        def fault(self, mb):
+            if self.graph is None:
+                orig(self, mb)
+    else:
+        owner, attr, orig = ppo.Optimizer, "advance", ppo.Optimizer.advance
+
+        def fault(self):
+            self.count -= 1
+            orig(self)
+            self.count += 1
+    setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms within the block, warning where an
+    operation has none (cuBLAS without ``CUBLAS_WORKSPACE_CONFIG``, which a
+    running process cannot set), the warnings dropped."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def sgd_iterations(device, config: dict, dtype: torch.dtype, graph: bool) -> dict:
+    """``PPO_SGD_ITERATIONS`` iterations of a fresh PPO learner of ``config``
+    (its seed's weights, envs and draws) with ``graph_sgd`` set to
+    ``graph``: each SGD step's loss, each leaf's norm of change (parameters
+    and BatchNorm statistics), the steps an iteration and whether a graph
+    was captured."""
+    from benchmark.entries.base import norm64
+    from gym2048_tpu_torch.train import ppo
+
+    tr = ppo.PPO(ppo.PPOConfig(**config, compute_dtype=dtype), device=device)
+    tr.graph_sgd = graph
+    state = tr.init_state()
+
+    def leaves():
+        out = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+        out.update((k, v.clone()) for k, v in state.model.named_buffers() if "running" in k)
+        return out
+
+    start, losses, step = leaves(), [], tr._sgd_step
+
+    def keep(s, mb):
+        aux = step(s, mb)
+        losses.append(aux[0])
+        return aux
+
+    tr._sgd_step = keep
+    for _ in range(PPO_SGD_ITERATIONS):
+        state, metrics = tr.train_iteration(state)
+        check(math.isfinite(float(metrics["loss"])), "loss not finite")
+    end = leaves()
+    captured = tr._sgd_graph is not None and tr._sgd_graph.graph is not None
+    return {"losses": torch.stack(losses).tolist(), "per_iteration": len(losses) //
+            PPO_SGD_ITERATIONS, "change": {k: norm64(end[k] - start[k]) for k in end},
+            "captured": captured}
+
+
+def sgd_gaps(run: dict, base: dict) -> tuple[float, float]:
+    """``run`` against ``base`` (:func:`sgd_iterations`): the largest gap of
+    a step's loss in the first iteration over the base's magnitude, and the
+    benchmark's change gap of the leaves after all iterations."""
+    from benchmark.entries.base import leaf_gap
+
+    n = base["per_iteration"]
+    loss = max(abs(a - b) / max(abs(b), 1e-6)
+               for a, b in zip(run["losses"][:n], base["losses"][:n], strict=True))
+    return loss, leaf_gap(run["change"], base["change"])
 
 
 def timed_chunks(trainer, state, chunks: int):
@@ -2331,6 +2451,126 @@ class Smoke:
                                warm=False, bench_key="ppo_steps_per_s_reference_config")]
         return " | ".join(parts) + f"; on {self.smi}"
 
+    # 19f
+    def ppo_sgd(self) -> str:
+        """PPO's SGD step as one CUDA graph replay (``_SgdGraph``) against the
+        eager step (``graph_sgd`` off), each from one seed (``PPO_SGD_CHECK``:
+        f32, TF32 off, deterministic algorithms): the eager step run twice
+        (the floor), the graphed step, and the graphed step with each of two
+        planted faults (:func:`sgd_fault`); a step's loss in the first
+        iteration and each leaf's change after two iterations within the
+        tolerances of the first eager run for the floor and the graphed
+        step, outside them for each fault. Then the graphed step against the
+        eager step in the cell's config (bf16, the default mode) under the
+        cell's limits, iteration seconds in turns (:meth:`sgd_turns`) and one
+        iteration of each path profiled (:meth:`sgd_profile`)."""
+        runs = {}
+        with tf32(False), deterministic_algorithms():
+            for name in ("eager", "eager again", "graphed", "stale inputs", "late rate"):
+                graph = name not in ("eager", "eager again")
+                with (sgd_fault(name) if name in ("stale inputs", "late rate")
+                      else contextlib.nullcontext()):
+                    runs[name] = sgd_iterations(self.dev, PPO_SGD_CHECK, torch.float32, graph)
+        base = runs["eager"]
+        gaps = {name: sgd_gaps(run, base) for name, run in runs.items() if name != "eager"}
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                               "workloads", "ppo-prod-bf16.json")) as f:
+            limits = json.load(f)["limits"]
+        cell = {g: sgd_iterations(self.dev, PPO_PRODUCTION, torch.bfloat16, g)
+                for g in (False, True)}
+        cell_gap = sgd_gaps(cell[True], cell[False])
+        tol = (PPO_SGD_LOSS_TOL, PPO_SGD_CHANGE_TOL)
+        text = (f"f32, TF32 off, deterministic algorithms, lr annealed over "
+                f"{PPO_SGD_ITERATIONS} iterations, against the eager step (tolerances "
+                f"{tol[0]:g} and {tol[1]:g}): "
+                + "; ".join(f"{name} loss gap {g[0]:.3e}, change gap {g[1]:.3e}"
+                            for name, g in gaps.items())
+                + f"; the cell's config "
+                f"(bf16, the default mode), graphed against eager: loss gap {cell_gap[0]:.3e}, "
+                f"change gap {cell_gap[1]:.3e} (the cell's limits against the reference "
+                f"{limits['loss_gap']}, {limits['change_gap']})")
+        check(all(runs[name]["captured"] == (name in ("graphed", "stale inputs", "late rate"))
+                  for name in runs), "a graph was captured on the eager path or not on the "
+                                     "graphed one; " + text)
+        for name in ("eager again", "graphed"):
+            check(gaps[name][0] <= tol[0] and gaps[name][1] <= tol[1], f"{name}: {text}")
+        for name in ("stale inputs", "late rate"):
+            check(gaps[name][0] > tol[0] or gaps[name][1] > tol[1],
+                  f"the check passes a replay of {name}: {text}")
+        check(cell_gap[0] <= limits["loss_gap"] and cell_gap[1] <= limits["change_gap"],
+              f"bf16: {text}")
+        del runs, base, cell
+        return text + "; " + self.sgd_turns() + "; " + self.sgd_profile() + f"; on {self.smi}"
+
+    def sgd_turns(self) -> str:
+        """Seconds of a PPO iteration of the cell's config (bf16), the eager
+        and the graphed SGD step in turns on one learner, each iteration read
+        by its loss as ``learn`` reads it, after one warm iteration each."""
+        from gym2048_tpu_torch.train import ppo
+
+        tr = ppo.PPO(ppo.PPOConfig(**PPO_PRODUCTION, compute_dtype=torch.bfloat16),
+                     device=self.dev)
+        state = tr.init_state()
+        secs = {"eager": [], "graphed": []}
+        order = ["graphed", "eager"]
+        for k in range(PPO_SGD_ROUNDS):
+            order += ["eager", "graphed"] if k % 2 == 0 else ["graphed", "eager"]
+        for i, name in enumerate(order):
+            tr.graph_sgd = name == "graphed"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = tr.train_iteration(state)
+            check(math.isfinite(float(metrics["loss"])), f"{name}: loss not finite")
+            if i >= 2:
+                secs[name].append(time.perf_counter() - t0)
+        med = {k: float(np.median(v)) for k, v in secs.items()}
+        work = tr.cfg.rollout_size
+        return (f"bf16 iteration seconds in turns (median of {PPO_SGD_ROUNDS}), eager "
+                f"{med['eager']:.4f} ({', '.join(f'{x:.4f}' for x in secs['eager'])}), "
+                f"graphed {med['graphed']:.4f} "
+                f"({', '.join(f'{x:.4f}' for x in secs['graphed'])}): "
+                f"{work / med['eager']:.0f} and {work / med['graphed']:.0f} steps/s, "
+                f"x{med['eager'] / med['graphed']:.3f}")
+
+    def sgd_profile(self) -> str:
+        """One iteration of each SGD path of the cell's config cut to
+        ``n_steps`` 8 (phase 19b's profiled shape) under ``torch.profiler``
+        after a warm iteration of each: device operations, host launches
+        and graph launches an env step, and the replay counter."""
+        from gym2048_tpu_torch.train import ppo
+        from gym2048_tpu_torch.utils import profiler
+
+        n_steps = PPO_PROFILE_STEPS[0]
+        cfg = ppo.PPOConfig(**{**PPO_PRODUCTION, "n_steps": n_steps},
+                            compute_dtype=torch.bfloat16)
+        tr = ppo.PPO(cfg, device=self.dev)
+        state = tr.init_state()
+        sgd_steps = cfg.n_epochs * cfg.n_minibatches
+        for graph in (True, False):
+            tr.graph_sgd = graph
+            state, _ = tr.train_iteration(state)
+        prof = {}
+        for name in ("eager", "graphed"):
+            tr.graph_sgd = name == "graphed"
+            profiler.clear()
+            prof[name] = launch_profile(lambda: tr.train_iteration(state), n_steps)
+            counters = profiler.summary()["counters"]
+            want = sgd_steps if name == "graphed" else 0
+            check(counters.get("ppo.sgd_replays", 0) == want
+                  and counters.get("ppo.sgd_steps") == sgd_steps,
+                  f"{name}: counters {counters} in an iteration of {sgd_steps} SGD steps")
+        profiler.clear()
+        e, r = prof["eager"], prof["graphed"]
+        check(r["graph_launches"] * n_steps == sgd_steps and r["ops"] >= e["ops"] - 5,
+              f"the profiler lists {r['ops']:.1f} device operations an env step against the "
+              f"eager step's {e['ops']:.1f}, {r['graph_launches']:.2f} graph launches")
+        return (f"profiled iteration at n_steps {n_steps} ({sgd_steps} SGD steps), eager / "
+                f"graphed: device operations an env step {e['ops']:.2f} / {r['ops']:.2f} (the "
+                f"graph's listed one by one), host launches an env step {e['launches']:.1f} / "
+                f"{r['launches']:.1f} ({r['graph_launches']:.0f} a graph launch), device busy "
+                f"{e['busy_s']:.4f} / {r['busy_s']:.4f} s of {e['wall_s']:.4f} / "
+                f"{r['wall_s']:.4f} s, replays counted {sgd_steps}")
+
     # 19c
     def ppo_learning(self) -> str:
         """The config of ``docs/curves/ppo_tpu_config.jsonl`` for 12
@@ -3383,6 +3623,7 @@ def main() -> int:
     smoke.run("18", "ops", smoke.ops_on_card)
     smoke.run("19a", "cnn forward", smoke.cnn_forward)
     smoke.run("19b", "ppo throughput", smoke.ppo_throughput)
+    smoke.run("19f", "ppo sgd graphed vs eager", smoke.ppo_sgd)
     smoke.run("19c", "ppo learning", smoke.ppo_learning)
     smoke.run("19d", "bc", smoke.bc_epoch)
     smoke.run("19e", "ppo evaluation", smoke.ppo_evaluation)
@@ -3421,6 +3662,15 @@ def td_tail_only() -> int:
     smoke.run("1", "device", smoke.device)
     smoke.run("2", "build", smoke.build)
     smoke.run("15g", "td tail replayed vs eager", smoke.td_tail)
+    print(smoke.smi, flush=True)
+    return 0
+
+
+def ppo_sgd_only() -> int:
+    """``--ppo-sgd``: the device and phase 19f alone."""
+    smoke = Smoke()
+    smoke.run("1", "device", smoke.device)
+    smoke.run("19f", "ppo sgd graphed vs eager", smoke.ppo_sgd)
     print(smoke.smi, flush=True)
     return 0
 
@@ -3731,6 +3981,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     parser.add_argument("--td-tail", action="store_true",
                         help="instead of all the phases, run phases 1, 2 and 15g (the TD "
                              "step's tail replayed against the eager step)")
+    parser.add_argument("--ppo-sgd", action="store_true",
+                        help="instead of all the phases, run phases 1 and 19f (PPO's SGD "
+                             "step replayed against the eager step)")
     parser.add_argument("--dp-worker", metavar="OUTDIR",
                         help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
@@ -3746,4 +3999,6 @@ if __name__ == "__main__":
         sys.exit(span_cost(args.span_cost))
     if args.td_tail and torch.cuda.is_available():
         sys.exit(td_tail_only())
+    if args.ppo_sgd and torch.cuda.is_available():
+        sys.exit(ppo_sgd_only())
     sys.exit(main())

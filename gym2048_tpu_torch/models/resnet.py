@@ -23,9 +23,11 @@ BatchNorm follows flax, not torch: the running statistics keep 0.99 of
 themselves per update (torch's ``momentum=0.01``), eps is 1e-5, and the
 running variance takes the batch's biased variance (torch's own
 ``BatchNorm2d`` takes the unbiased one). The normalisation itself is
-torch's fused ``batch_norm`` (one kernel forward, one backward); the
-batch's variance there is computed in two passes where flax computes
-``E[x^2] - E[x]^2`` (``use_fast_variance``): the same to roundoff.
+torch's fused ``native_batch_norm`` (one kernel forward, one backward),
+whose batch statistics (the mean and the inverse deviation) also update the
+running statistics; the batch's variance there is computed in two passes
+(Welford's, on the card) where flax computes ``E[x^2] - E[x]^2``
+(``use_fast_variance``): the same to roundoff.
 Statistics are always float32. Inside :func:`sync_batch_norm` (data-parallel
 PPO), a train-mode BatchNorm takes its batch statistics over the ranks of a
 process group, through an autograd-aware ``all_reduce`` of each channel's
@@ -128,12 +130,15 @@ class BatchNorm(nn.BatchNorm2d):
             return self._synced(x, *_SYNC)
         if self.training:
             # normalise by the batch's biased variance in torch's fused kernel,
-            # and update the running statistics with flax's rule
+            # and update the running statistics with flax's rule from that
+            # kernel's own statistics: the batch's mean, and its biased
+            # variance as 1 / invstd^2 - eps, clipped at 0 as flax clips
+            out, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
                 self.running_mean.lerp_(mean, 0.01)
-                self.running_var.lerp_(var, 0.01)
-            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+                self.running_var.lerp_(invstd.pow(-2).sub_(self.eps).clamp_min_(0.0), 0.01)
+            return out
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                             False, 0.0, self.eps)
 

@@ -12,7 +12,10 @@ Where the JAX module scans, this one loops in Python over the same steps;
 nothing leaves the device until :meth:`PPO.learn` reads an iteration's
 metrics. There is no kernel here: the CNN's convolutions and dense layers
 are cuDNN's and cuBLAS's, as they are XLA's in JAX, and the env is
-``env/batched.py``.
+``env/batched.py``. On a CUDA device with one rank each SGD step is one
+CUDA graph replay (:class:`_SgdGraph`): the forward, the loss, the
+backward, the clip and Adam launched at once, on static buffers that the
+step's minibatch is copied into.
 
 The optimiser is optax's ``chain(clip_by_global_norm(max_grad_norm),
 adam(schedule, eps=1e-5))``:
@@ -22,9 +25,15 @@ adam(schedule, eps=1e-5))``:
   scales, by ``max_norm / (norm + 1e-6)`` clamped to 1); here the scale is
   one factor for all leaves, where optax divides and multiplies each leaf:
   the same up to one rounding;
-* Adam is ``torch.optim.Adam(eps=1e-5)``, which computes optax's
-  ``mu_hat / (sqrt(nu_hat) + eps)`` up to roundoff
-  (``tests/test_torch_ppo.py`` holds SGD steps to JAX's);
+* Adam is torch's single-tensor ``Adam(eps=1e-5)`` written in foreach ops
+  (:meth:`Optimizer.apply`) on a ``torch.optim.Adam``'s state, whose
+  ``state_dict`` is the checkpoint's: the same numbers as ``Adam.step`` bit
+  for bit on the CPU, and on the card in every path, graphed, eager or data
+  parallel. Its two step-dependent scalars are computed on the host in
+  float64 as torch computes them (:meth:`Optimizer.advance`) and read on the
+  device, so a CUDA graph can hold the update. It computes optax's
+  ``mu_hat / (sqrt(nu_hat) + eps)`` up to roundoff (``tests/test_torch_ppo.py``
+  holds SGD steps to JAX's);
 * the linear schedule, like ``optax.linear_schedule`` over ``n_updates *
   n_epochs * n_minibatches`` steps, reads the learning rate at the step
   count before incrementing it, in float32.
@@ -74,6 +83,7 @@ from gym2048_tpu_torch.utils import profiler
 
 _NEG = -1e9
 _TINY = torch.finfo(torch.float32).tiny
+_WARMUP = 2  # eager SGD steps of a graphed step's holder before its capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +140,10 @@ class Optimizer:
     """optax's ``chain(clip_by_global_norm(max_norm), adam(lr_fn, eps=1e-5))``
     over ``params`` (see the module docstring). ``count`` is the
     schedule's step count. With a process ``group`` the gradients are first
-    summed over its ranks (one ``all_reduce`` of them all)."""
+    summed over its ranks (one ``all_reduce`` of them all). A step is
+    :meth:`advance` on the host, then :meth:`apply` on the device, which a
+    CUDA graph can hold; :attr:`scalars` carries the step's two Adam
+    scalars from one to the other."""
 
     def __init__(self, params, lr_fn: Callable[[int], float], max_norm: float,
                  group=None):
@@ -138,33 +151,87 @@ class Optimizer:
         self.lr_fn = lr_fn
         self.max_norm = max_norm
         self.group = group
+        # Adam's hyper-parameters and state in torch's layout; the update is apply's
         self.adam = torch.optim.Adam(self.params, lr=lr_fn(0), eps=1e-5)
+        self._init_state()
+        dev = self.params[0].device
+        self.scalars = (torch.zeros((), device=dev), torch.zeros((), device=dev))
         self.count = 0
+
+    def _init_state(self) -> None:
+        """Adam's state where a parameter has none, as ``Adam.step`` makes it
+        at its first step: both moments zero, the step count a float32
+        scalar on the CPU."""
+        for p in self.params:
+            state = self.adam.state[p]
+            if not state:
+                state["step"] = torch.tensor(0.0)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
     def step(self) -> None:
         """Clip the parameters' gradients, take one Adam step at the
         schedule's learning rate, and clear the gradients."""
-        grads = [p.grad for p in self.params]
         if self.group is not None:
+            grads = [p.grad for p in self.params]
             flat = torch.cat([g.reshape(-1) for g in grads])
             dist.all_reduce(flat, group=self.group)
             for g, part in zip(grads, flat.split([g.numel() for g in grads])):
                 g.copy_(part.view_as(g))
+        self.advance()
+        self.apply()
+
+    def advance(self) -> None:
+        """The host's part of a step: the schedule's learning rate into
+        Adam's group, Adam's step counts and ``count`` advanced, and into
+        :attr:`scalars` the update's ``-lr / (1 - beta1^t)`` and ``sqrt(1 -
+        beta2^t)``, computed in float64 as ``Adam.step`` computes them."""
+        (group,) = self.adam.param_groups
+        group["lr"] = lr = self.lr_fn(self.count)
+        steps = [self.adam.state[p]["step"] for p in self.params]
+        torch._foreach_add_(steps, 1.0)
+        t = float(steps[0])
+        beta1, beta2 = group["betas"]
+        self.scalars[0].fill_(-(lr / (1 - beta1 ** t)))
+        self.scalars[1].fill_((1 - beta2 ** t) ** 0.5)
+        self.count += 1
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        """The device's part of a step: the global-norm clip of the
+        parameters' gradients, Adam's update of its moments and of the
+        parameters in foreach ops with :meth:`advance`'s scalars, in the
+        order of torch's single-tensor Adam, and the gradients cleared."""
+        grads = [p.grad for p in self.params]
         norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         factor = torch.where(norm < self.max_norm, 1.0, self.max_norm / norm)
         torch._foreach_mul_(grads, factor)
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr_fn(self.count)
-        self.adam.step()
-        self.adam.zero_grad(set_to_none=True)
-        self.count += 1
+        (group,) = self.adam.param_groups
+        beta1, beta2 = group["betas"]
+        states = [self.adam.state[p] for p in self.params]
+        exp_avgs = [s["exp_avg"] for s in states]
+        exp_avg_sqs = [s["exp_avg_sq"] for s in states]
+        torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
+        torch._foreach_mul_(exp_avg_sqs, beta2)
+        torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - beta2)
+        denom = torch._foreach_sqrt(exp_avg_sqs)
+        torch._foreach_div_(denom, self.scalars[1])
+        torch._foreach_add_(denom, group["eps"])
+        update = torch._foreach_mul(exp_avgs, self.scalars[0])
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(self.params, update)
+        for p in self.params:
+            p.grad = None
 
     def state_dict(self) -> dict:
         """Adam's state and the schedule's count (JAX's ``opt_state``)."""
         return {"adam": self.adam.state_dict(), "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s, also one saved before Adam's state
+        existed (it is then made as at construction)."""
         self.adam.load_state_dict(state["adam"])
+        self._init_state()
         self.count = int(state["count"])
 
 
@@ -221,8 +288,11 @@ class UpdateBatch:
     adv: torch.Tensor
     ret: torch.Tensor
 
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
     def map(self, fn) -> UpdateBatch:
-        return UpdateBatch(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
+        return UpdateBatch(*map(fn, self.tensors()))
 
 
 def ppo_loss_terms(logits: torch.Tensor, value: torch.Tensor, action: torch.Tensor,
@@ -279,6 +349,94 @@ def ppo_loss_terms(logits: torch.Tensor, value: torch.Tensor, action: torch.Tens
 _AUX = ("loss", "policy_loss", "value_loss", "entropy", "approx_kl", "clip_frac")
 
 
+class _SgdGraph:
+    """SGD steps of :meth:`PPO._sgd_step` on static buffers: :attr:`inputs`,
+    the minibatch that a step copies in, and :attr:`aux`, the step's
+    ``_AUX`` metrics. A step is the eager step's arithmetic: the forward in
+    train mode (BatchNorm's running statistics updated), the legal mask, the
+    loss terms, the backward into gradients that start from none, then
+    :meth:`Optimizer.advance` on the host and :meth:`Optimizer.apply`. The
+    first :data:`_WARMUP` steps run the eager step (on a CUDA device on a
+    side stream), as real steps of their minibatches; on a CUDA device the
+    next step is captured once as a CUDA graph, and it and every later step
+    is a replay; elsewhere a replay calls the same code. A step returns a
+    copy of :attr:`aux`, which later steps leave as it is."""
+
+    def __init__(self, key: tuple, state: TrainState, mb: UpdateBatch):
+        self.key, self.model, self.optimizer = key, state.model, state.optimizer
+        self.adam_state = state.optimizer.adam.state  # held: its id is in the key
+        dev = mb.board.device
+        self.inputs = mb.map(torch.empty_like)
+        self.aux = torch.zeros(len(_AUX), device=dev)
+        self.warm = 0
+        self.side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.graph = None
+
+    @staticmethod
+    def key_of(trainer: PPO, state: TrainState, mb: UpdateBatch) -> tuple:
+        """What a capture fixes: the minibatch's shapes, dtypes and device,
+        the loss's settings and the clip, the model's and the optimiser's
+        objects and the memory of the parameters, buffers and Adam's state,
+        and torch's settings that choose kernels."""
+        cfg, model, opt = trainer.cfg, state.model, state.optimizer
+        adam = opt.adam.state
+        b = torch.backends
+        return ((cfg.compute_dtype, cfg.mask_illegal, cfg.clip_coef, cfg.ent_coef, cfg.vf_coef,
+                 opt.max_norm),
+                tuple((x.shape, x.dtype, x.device) for x in mb.tensors()),
+                id(model), id(opt), id(adam),
+                tuple(t.data_ptr() for t in model.parameters()),
+                tuple(t.data_ptr() for t in model.buffers()),
+                tuple(s[k].data_ptr() for s in adam.values() for k in ("exp_avg", "exp_avg_sq")),
+                (torch.are_deterministic_algorithms_enabled(), b.cudnn.deterministic,
+                 b.cudnn.benchmark, b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32))
+
+    def _run(self, trainer: PPO) -> None:
+        """One step on the buffers (what the graph holds)."""
+        loss, terms = trainer._loss(self.model.train(), self.inputs)
+        loss.backward()
+        self.optimizer.apply()
+        self.aux.copy_(torch.stack([loss, *terms]).detach())
+
+    def _eager(self, trainer: PPO, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
+        if self.side is None:
+            return trainer._sgd_eager(state, mb)
+        current = torch.cuda.current_stream(self.side.device)
+        self.side.wait_stream(current)
+        with torch.cuda.stream(self.side):
+            aux = trainer._sgd_eager(state, mb)
+        current.wait_stream(self.side)
+        return aux
+
+    def _capture(self, trainer: PPO) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._run(trainer)
+        return graph
+
+    def load(self, mb: UpdateBatch) -> None:
+        """Copy the step's minibatch into :attr:`inputs`."""
+        for buf, x in zip(self.inputs.tensors(), mb.tensors()):
+            buf.copy_(x)
+
+    def step(self, trainer: PPO, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
+        """One SGD step of ``trainer`` on ``mb`` -> its ``_AUX`` metrics ``(6,)``."""
+        if self.warm < _WARMUP:
+            self.warm += 1
+            return self._eager(trainer, state, mb)
+        with profiler.span("ppo.sgd"):
+            self.load(mb)
+            self.optimizer.advance()
+            if self.side is None:
+                self._run(trainer)
+            else:
+                if self.graph is None:
+                    self.graph = self._capture(trainer)
+                self.graph.replay()
+                profiler.count("ppo.sgd_replays", 1)
+            return self.aux.clone()
+
+
 class PPO:
     """PPO trainer on ``device``. Construct, then ``state = init_state()``
     and loop ``state, metrics = train_iteration(state)``, or call
@@ -314,6 +472,10 @@ class PPO:
             self.lr_fn = linear_schedule(config.lr, 0.0, total_opt_steps)
         else:
             self.lr_fn = lambda count: config.lr
+        # each SGD step a CUDA graph replay (_SgdGraph): on a CUDA device with
+        # one rank, where no collective runs inside the step
+        self.graph_sgd = self.device.type == "cuda" and self.group is None
+        self._sgd_graph = None
 
     # ------------------------------------------------------------------ init
     def make_optimizer(self, model: ActorCritic) -> Optimizer:
@@ -402,28 +564,49 @@ class PPO:
         return traj, last_value
 
     # ---------------------------------------------------------------- update
-    def _sgd_step(self, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
-        """One SGD step on a minibatch (BatchNorm in train mode) -> the
-        ``_AUX`` metrics stacked ``(6,)``, on the device."""
+    def _loss(self, model: ActorCritic, mb: UpdateBatch):
+        """The forward of ``mb`` through ``model``, the legal mask and the
+        loss terms -> ``(loss, (policy_loss, value_loss, entropy, approx_kl,
+        clip_frac))``."""
         cfg = self.cfg
-        model = state.model.train()
+        with (sync_batch_norm(self.group, self.world) if self.group is not None
+              else contextlib.nullcontext()):
+            logits, value = self._policy(model, mb.board)
+        if cfg.mask_illegal:
+            _, _, legal = rules.move_all(mb.board)
+            logits = torch.where(legal, logits, _NEG)
+        terms = ppo_loss_terms(logits, value, mb.action, mb.logprob, mb.adv, mb.ret,
+                               cfg.clip_coef, self.group, self.world)
+        policy_loss, value_loss, entropy = terms[:3]
+        return policy_loss - cfg.ent_coef * entropy + cfg.vf_coef * value_loss, terms
+
+    def _sgd_eager(self, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
+        """:meth:`_sgd_step` launched op by op, ``Optimizer.step`` for the
+        optimiser."""
         with profiler.span("ppo.forward"):
-            with (sync_batch_norm(self.group, self.world) if self.group is not None
-                  else contextlib.nullcontext()):
-                logits, value = self._policy(model, mb.board)
-            if cfg.mask_illegal:
-                _, _, legal = rules.move_all(mb.board)
-                logits = torch.where(legal, logits, _NEG)
-            policy_loss, value_loss, entropy, approx_kl, clip_frac = ppo_loss_terms(
-                logits, value, mb.action, mb.logprob, mb.adv, mb.ret, cfg.clip_coef,
-                self.group, self.world)
-            loss = policy_loss - cfg.ent_coef * entropy + cfg.vf_coef * value_loss
+            loss, terms = self._loss(state.model.train(), mb)
         with profiler.span("ppo.backward"):
             loss.backward()
         with profiler.span("ppo.optimizer"):
             state.optimizer.step()
-        return torch.stack([loss, policy_loss, value_loss, entropy, approx_kl,
-                            clip_frac]).detach()
+        return torch.stack([loss, *terms]).detach()
+
+    def _sgd_step(self, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
+        """One SGD step on a minibatch (BatchNorm in train mode) -> the
+        ``_AUX`` metrics stacked ``(6,)``, on the device, a tensor of its
+        own. With ``graph_sgd`` (by default on a CUDA device with one rank)
+        the step runs on an :class:`_SgdGraph`'s buffers, one CUDA graph
+        replay after its warm-ups, built at the first step and again when
+        what its capture fixes changes (:meth:`_SgdGraph.key_of`: a new
+        minibatch shape, model, optimiser state, ...); else eagerly."""
+        profiler.count("ppo.sgd_steps", 1)
+        if not self.graph_sgd:
+            return self._sgd_eager(state, mb)
+        key = _SgdGraph.key_of(self, state, mb)
+        if self._sgd_graph is None or self._sgd_graph.key != key:
+            self._sgd_graph = None  # the old graph and buffers go first
+            self._sgd_graph = _SgdGraph(key, state, mb)
+        return self._sgd_graph.step(self, state, mb)
 
     def _permutation(self, generator: torch.Generator) -> torch.Tensor:
         """One epoch's shuffle: a permutation of the flat buffer

@@ -233,13 +233,70 @@ def test_optimizer_matches_optax(max_norm, anneal):
     assert opt.count == 6
 
 
+@pytest.mark.parametrize("max_norm", [0.5, 1e9])
+def test_optimizer_equals_torch_adam(max_norm):
+    """The port's Adam (``Optimizer.advance`` + ``.apply``, foreach ops a
+    CUDA graph can hold) is torch's single-tensor ``Adam.step`` bit for bit
+    on the CPU, after the same clip and schedule, over six steps: the
+    parameters and Adam's moments and step counts."""
+    rng = np.random.default_rng(3)
+    shapes = [(8, 16, 3, 3), (8,), (64, 4)]
+    init = [t(rng.normal(size=s).astype(np.float32) * 0.1) for s in shapes]
+    ours = [torch.nn.Parameter(x.clone()) for x in init]
+    theirs = [torch.nn.Parameter(x.clone()) for x in init]
+    schedule = ppo.linear_schedule(3e-4, 0.0, 6)
+    opt = ppo.Optimizer(ours, schedule, max_norm)
+    adam = torch.optim.Adam(theirs, lr=schedule(0), eps=1e-5, foreach=False)
+    for step in range(6):
+        grads = [t(rng.normal(size=s).astype(np.float32) * (0.02 if step % 2 else 1.0))
+                 for s in shapes]
+        for p, q, g in zip(ours, theirs, grads):
+            p.grad, q.grad = g.clone(), g.clone()
+        opt.step()
+        with torch.no_grad():
+            norm = torch.stack([q.grad.square().sum() for q in theirs]).sum().sqrt()
+            factor = torch.where(norm < max_norm, 1.0, max_norm / norm)
+            torch._foreach_mul_([q.grad for q in theirs], factor)
+        adam.param_groups[0]["lr"] = schedule(step)
+        adam.step()
+        for p, q in zip(ours, theirs):
+            assert torch.equal(p, q), step
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(opt.adam.state[p][k], adam.state[q][k]), (step, k)
+
+
+def test_optimizer_loads_a_state_saved_before_any_step():
+    """A state saved before Adam's first step (torch's Adam holds no
+    per-parameter state then) loads into moments of zero and a step count
+    of zero, and the next step equals a fresh optimiser's."""
+    rng = np.random.default_rng(4)
+    init = t(rng.normal(size=(4, 3)).astype(np.float32))
+    grad = t(rng.normal(size=(4, 3)).astype(np.float32))
+    fresh, loaded = torch.nn.Parameter(init.clone()), torch.nn.Parameter(init.clone())
+    a = ppo.Optimizer([fresh], lambda c: 1e-3, 0.5)
+    b = ppo.Optimizer([loaded], lambda c: 1e-3, 0.5)
+    empty = torch.optim.Adam([torch.nn.Parameter(init.clone())], lr=1e-3, eps=1e-5)
+    b.load_state_dict({"adam": empty.state_dict(), "count": 0})
+    assert set(b.adam.state[loaded]) == {"step", "exp_avg", "exp_avg_sq"}
+    fresh.grad, loaded.grad = grad.clone(), grad.clone()
+    a.step()
+    b.step()
+    assert torch.equal(fresh, loaded) and b.count == 1
+    assert float(b.adam.state[loaded]["step"]) == 1.0
+
+
 @pytest.mark.parametrize("name", list(SGD_CONFIGS))
 @pytest.mark.parametrize("n_steps", [1, 4])
-def test_sgd_steps_match_jax(name, n_steps):
+@pytest.mark.parametrize("graph", [False, True], ids=["eager", "buffered"])
+def test_sgd_steps_match_jax(name, n_steps, graph):
     """``n_steps`` SGD steps from the same parameters on the same
     minibatches against JAX's ``PPO._sgd_scan``: parameters, BatchNorm
-    statistics, the schedule's count and the metrics."""
-    _, trainer, js, mbs, after = sgd_setup(name)
+    statistics, the schedule's count and the metrics; with ``graph`` on the
+    static buffers of ``_SgdGraph`` (the card's graphed step, whose replays
+    off the card are plain calls), two warm-ups then its own steps."""
+    _, cached, js, mbs, after = sgd_setup(name)
+    trainer = ppo.PPO(cached.cfg, device="cpu")
+    trainer.graph_sgd = graph
     params, stats, _ = after[n_steps - 1]
     want_aux = np.stack([a for _, _, a in after[:n_steps]])
     state = port_state(trainer, js.params, js.batch_stats)

@@ -9,8 +9,11 @@ Tolerances, with their reasons:
   convolution's products in their own orders; measured 3e-8.
 * Train-mode forward and the new BatchNorm statistics: within 1e-5 of the
   largest magnitude. flax computes the batch variance as E[x^2] - E[x]^2
-  (``use_fast_variance``), as the port does, and the sums again run in
-  their own orders; measured 3e-6 (outputs) and 5e-6 (statistics).
+  (``use_fast_variance``), the port as the normalisation's kernel does (in
+  two passes; the running variance from its inverse deviation), and the
+  sums again run in their own orders; measured 3e-6 (outputs) and 5e-6
+  (statistics). Against ``torch.var_mean`` of the same activations the
+  statistics agree to 1e-6 of their magnitude.
 * bfloat16 compute: within 2^-12 of the largest magnitude, where the two
   round the same activations to bfloat16 but sum in their own orders;
   measured 2^-13 and below. The float32 forward of the same weights lies
@@ -158,6 +161,32 @@ def test_train_forward_and_batch_stats_match_flax(kind):
     # the statistics moved by 0.01 of the batch's: flax's momentum 0.99
     before = jax.tree.leaves(v["batch_stats"])
     assert any(not np.allclose(a, c) for a, c in zip(before, jax.tree.leaves(got)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_batch_norm_statistics_follow_flax_rule(dtype):
+    """One train-mode BatchNorm step: the output is torch's ``batch_norm``
+    of the batch; the running statistics move by 0.01 towards the batch's
+    mean and biased variance (``torch.var_mean``'s, within 1e-6 of their
+    magnitude), taken from the normalisation's own statistics; a channel
+    with no variance adds a variance of 0, never below."""
+    gen = torch.Generator().manual_seed(3)
+    bn = resnet.BatchNorm(16).train()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-1.0, 1.0, generator=gen)
+    x = (torch.randn(256, 16, 4, 4, generator=gen) * 3 + 1).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    x[:, 3] = 0.7
+    out = bn(x)
+    assert torch.equal(out, torch.nn.functional.batch_norm(
+        x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps))
+    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    for got, want in ((bn.running_mean, torch.zeros(16).lerp(mean, 0.01)),
+                      (bn.running_var, torch.ones(16).lerp(var, 0.01))):
+        assert got.dtype == torch.float32
+        assert (got - want).abs().max() <= 1e-6 * max(1.0, want.abs().max())
+    assert (bn.running_var >= 0.99).all() and bn.running_var[3] == pytest.approx(0.99, abs=1e-7)
 
 
 def test_committed_masked_model_matches_flax():
