@@ -48,13 +48,18 @@ counts:
   2, whose first 128 moves are replayed with the plain lookup.
 
 Then the ``ops`` transforms (observation encoders, augmentation, returns)
-on the card must equal their CPU results, and the CNN path (phases 19a-19f:
+on the card must equal their CPU results, and the CNN path (phases 19a-19g:
 the forward, PPO, BC, the evaluators) runs on the card. Each PPO SGD step
 is one CUDA graph replay on the card; phase 19f holds two iterations of it
 against the eager step (the same arithmetic, deterministic algorithms,
 within a few roundings, while a replay of stale inputs or a learning rate
 one step late fails), times both in turns and profiles both
-(``--ppo-sgd`` runs that phase alone).
+(``--ppo-sgd`` runs that phase alone). So is each PPO rollout step; phase
+19g holds two rollouts of it against the same step written out op by op
+(``reference_rollout``) bit for bit (while a replay of stale draws or one
+that leaves the env state unwritten fails), times both in turns, the
+reference config's iterations too, and profiles both (``--ppo-rollout``
+runs that phase alone).
 
 Last, the shell (phase 20, path "shell", none of our kernels): the native
 engine built with ``g++`` and held against ``rules_np`` and ``core.rules``;
@@ -110,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
@@ -311,6 +317,17 @@ PPO_SGD_ITERATIONS, PPO_SGD_ROUNDS = 2, 3
 PPO_SGD_CHECK = dict(PPO_PRODUCTION, total_timesteps=PPO_SGD_ITERATIONS * 4096 * 128,
                      anneal_lr=True, seed=SEED)
 PPO_SGD_LOSS_TOL, PPO_SGD_CHANGE_TOL = 1e-6, 1e-5
+# Phase 19g, PPO's rollout step as a CUDA graph replay against the eager step
+# written out op by op (reference_rollout): two successive rollouts of the
+# production shape from one seed (no update between them) in f32 and bf16 at
+# torch's defaults. Both paths launch the same kernels in the same order on the
+# same uniforms, so every trajectory field, the last values, the env state and
+# the generator's state must be equal, and a replay of stale draws or one that
+# leaves the env state unwritten must not be. The timing rounds run the cell's
+# config and the reference config (8 x 2048, f32), each path in turns.
+PPO_ROLLOUT_CHECK = dict(PPO_PRODUCTION, seed=SEED)
+PPO_ROLLOUT_ROUNDS = 3
+PPO_ROLLOUT_FAULTS = ("stale draws", "env not written back")
 # docs/curves/ppo_tpu_config.jsonl: the CLI at the commit that logged it (f32:
 # it had no --bf16; the global shuffle: it passed no shuffle_mode) with
 # --n-envs 4096 --n-steps 128 --batch-size 16384 --log2-rewards (its
@@ -767,7 +784,7 @@ def sgd_fault(name: str):
         owner, attr, orig = ppo._SgdGraph, "load", ppo._SgdGraph.load
 
         def fault(self, mb):
-            if self.graph is None:
+            if self.graphed.graph is None:
                 orig(self, mb)
     else:
         owner, attr, orig = ppo.Optimizer, "advance", ppo.Optimizer.advance
@@ -797,6 +814,115 @@ def deterministic_algorithms():
             yield
         finally:
             torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def rollout_fault(name: str):
+    """Within this block a fault planted in PPO's graphed rollout step (phase
+    19g): ``"stale draws"``, each replay on the uniforms of the capture (the
+    generator still advanced); ``"env not written back"``, each replay
+    leaving the env state's buffers as it found them."""
+    from gym2048_tpu_torch.train import ppo
+
+    holder = ppo._RolloutGraph
+    if name == "stale draws":
+        attr, orig = "draw", holder.draw
+
+        def fault(self, generator, u):
+            if self.graphed.graph is None:
+                orig(self, generator, u)
+            else:
+                torch.rand(u.shape, generator=generator, device=u.device)
+    else:
+        attr, orig = "_run", holder._run
+
+        def fault(self, trainer, generator=None):
+            if not torch.cuda.is_current_stream_capturing():
+                return orig(self, trainer, generator)
+            before = [x.clone() for x in ppo._env_tensors(self.env)]
+            orig(self, trainer, generator)
+            for buf, x in zip(ppo._env_tensors(self.env), before):
+                buf.copy_(x)
+    setattr(holder, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(holder, attr, orig)
+
+
+@torch.no_grad()
+def reference_rollout(tr, state):
+    """``tr._collect_rollout(state)`` written out op by op, on fresh tensors
+    each step and without a graph: the draws from ``state.generator`` in the
+    learner's order and shapes (each rank's block of the whole batch's), the
+    moves, the policy in eval mode, the mask, the Gumbel-max, the logprob,
+    the env step, the trajectory's rows, then the last values. Returns
+    ``(Transition, last_value)`` and advances ``state.env_state``."""
+    from gym2048_tpu_torch.env import batched
+    from gym2048_tpu_torch.train import ppo
+
+    cfg, gen = tr.cfg, state.generator
+    model = state.model.eval()
+    traj = ppo.Transition.empty(cfg.n_steps, tr.n_local, tr.device)
+    env = state.env_state
+    for t in range(cfg.n_steps):
+        products = batched.move_products(env)
+        logits, value = tr._policy(model, env.board)
+        if cfg.mask_illegal:
+            logits = torch.where(products[2], logits, ppo._NEG)
+        u = tr._uniform(gen, (cfg.n_envs, 4)).clamp_min(ppo._TINY)
+        action = (logits - torch.log(-torch.log(u))).argmax(-1)
+        logprob = torch.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
+        traj.board[t] = env.board
+        env, ts = batched.step_with_products(env, action, products, tr.env_cfg,
+                                             u=tr._uniform(gen, (cfg.n_envs, 6)))
+        traj.action[t], traj.logprob[t], traj.value[t] = action, logprob, value
+        traj.reward[t], traj.done[t], traj.score[t] = ts.reward, ts.terminated, ts.score
+        traj.highest[t], traj.ep_len[t] = ts.highest, ts.steps
+    _, last_value = tr._policy(model, env.board)
+    state.env_state = env
+    return traj, last_value
+
+
+def use_rollout(tr, name: str) -> None:
+    """Make ``tr``'s rollout its own (``"graphed"``: on the card one CUDA
+    graph replay a step) or :func:`reference_rollout` (``"eager"``)."""
+    if name == "eager":
+        tr._collect_rollout = functools.partial(reference_rollout, tr)
+    else:
+        tr.__dict__.pop("_collect_rollout", None)
+
+
+def rollout_pair(device, config: dict, dtype: torch.dtype, graph: bool) -> dict:
+    """Two successive rollouts (no update between) of a fresh PPO learner of
+    ``config``: its own (``PPO._collect_rollout``, graphed on the card) with
+    ``graph``, else :func:`reference_rollout`; every tensor they return and
+    the env state after each, the generator's state after both, whether the
+    first rollout's tensors were left as returned, and whether a graph was
+    captured."""
+    from gym2048_tpu_torch.train import ppo
+
+    tr = ppo.PPO(ppo.PPOConfig(**config, compute_dtype=dtype), device=device)
+    use_rollout(tr, "graphed" if graph else "eager")
+    state = tr.init_state()
+    tensors, kept = [], []
+    for _ in range(2):
+        traj, last_value = tr._collect_rollout(state)
+        out = (*traj.tensors(), last_value, *ppo._env_tensors(state.env_state))
+        kept.append(out)
+        tensors += [x.clone() for x in out]
+    intact = all(torch.equal(a, b) for a, b in zip(kept[0], tensors, strict=False))
+    holder = tr._rollout_graph
+    return {"tensors": tensors, "generator": state.generator.get_state(), "intact": intact,
+            "captured": holder is not None and holder.graphed.graph is not None}
+
+
+def rollout_diffs(run: dict, base: dict) -> int:
+    """Tensors of ``run`` (:func:`rollout_pair`) unequal to ``base``'s, the
+    generator's state counted as one."""
+    return (sum(not torch.equal(a, b) for a, b in zip(run["tensors"], base["tensors"],
+                                                      strict=True))
+            + (not torch.equal(run["generator"], base["generator"])))
 
 
 def sgd_iterations(device, config: dict, dtype: torch.dtype, graph: bool) -> dict:
@@ -829,7 +955,7 @@ def sgd_iterations(device, config: dict, dtype: torch.dtype, graph: bool) -> dic
         state, metrics = tr.train_iteration(state)
         check(math.isfinite(float(metrics["loss"])), "loss not finite")
     end = leaves()
-    captured = tr._sgd_graph is not None and tr._sgd_graph.graph is not None
+    captured = tr._sgd_graph is not None and tr._sgd_graph.graphed.graph is not None
     return {"losses": torch.stack(losses).tolist(), "per_iteration": len(losses) //
             PPO_SGD_ITERATIONS, "change": {k: norm64(end[k] - start[k]) for k in end},
             "captured": captured}
@@ -1966,7 +2092,7 @@ class Smoke:
                 replayed, rs, rsecs = scan_chunks(tr, tr._scan_replayed, state, TD_TAIL_CHUNKS)
             finally:
                 torch.use_deterministic_algorithms(False)
-            check(tr._tail.graph is not None, f"{label}: no graph was captured")
+            check(tr._tail.graphed.graph is not None, f"{label}: no graph was captured")
             bad = state_diffs(eager, replayed)
             check(not bad, f"{label}: the replayed chunks differ from the eager ones in {bad}")
             check(all(torch.equal(a, b) for x, y in zip(es, rs) for a, b in zip(x, y)),
@@ -2561,15 +2687,152 @@ class Smoke:
                   f"{name}: counters {counters} in an iteration of {sgd_steps} SGD steps")
         profiler.clear()
         e, r = prof["eager"], prof["graphed"]
-        check(r["graph_launches"] * n_steps == sgd_steps and r["ops"] >= e["ops"] - 5,
+        # both iterations' rollouts replay a graph a step (_RolloutGraph)
+        check(r["graph_launches"] * n_steps == sgd_steps + n_steps
+              and e["graph_launches"] == 1 and r["ops"] >= e["ops"] - 5,
               f"the profiler lists {r['ops']:.1f} device operations an env step against the "
-              f"eager step's {e['ops']:.1f}, {r['graph_launches']:.2f} graph launches")
+              f"eager step's {e['ops']:.1f}, {r['graph_launches']:.2f} and "
+              f"{e['graph_launches']:.2f} graph launches")
         return (f"profiled iteration at n_steps {n_steps} ({sgd_steps} SGD steps), eager / "
                 f"graphed: device operations an env step {e['ops']:.2f} / {r['ops']:.2f} (the "
                 f"graph's listed one by one), host launches an env step {e['launches']:.1f} / "
-                f"{r['launches']:.1f} ({r['graph_launches']:.0f} a graph launch), device busy "
+                f"{r['launches']:.1f} ({r['graph_launches']:.0f} graph launches), device busy "
                 f"{e['busy_s']:.4f} / {r['busy_s']:.4f} s of {e['wall_s']:.4f} / "
                 f"{r['wall_s']:.4f} s, replays counted {sgd_steps}")
+
+    # 19g
+    def ppo_rollout(self) -> str:
+        """PPO's rollout step as one CUDA graph replay (``_RolloutGraph``)
+        against the eager step (:func:`reference_rollout`): two successive
+        rollouts of the production shape from one seed (:func:`rollout_pair`)
+        in f32 and bf16 at torch's defaults, every tensor and the generator's
+        state equal, the first rollout's tensors left as returned; in f32 a
+        replay of stale draws and one that leaves the env state unwritten
+        (:func:`rollout_fault`) must differ. Then seconds in turns
+        (:meth:`rollout_turns`) and one rollout of each path profiled
+        (:meth:`rollout_profile`)."""
+        parts = []
+        for dtype in (torch.float32, torch.bfloat16):
+            names = ("eager", "graphed") + (PPO_ROLLOUT_FAULTS if dtype == torch.float32 else ())
+            runs = {}
+            for name in names:
+                with (rollout_fault(name) if name in PPO_ROLLOUT_FAULTS
+                      else contextlib.nullcontext()):
+                    runs[name] = rollout_pair(self.dev, PPO_ROLLOUT_CHECK, dtype,
+                                              name != "eager")
+            base = runs.pop("eager")
+            diffs = {name: rollout_diffs(run, base) for name, run in runs.items()}
+            text = (f"{dtype}: " + ", ".join(f"{name} {d} of {len(base['tensors']) + 1} differ"
+                                             for name, d in diffs.items()))
+            check(base["intact"] and runs["graphed"]["intact"],
+                  f"a rollout's tensors changed under the next rollout; {text}")
+            check(not base["captured"] and all(r["captured"] for r in runs.values()),
+                  f"a graph was captured on the eager path or not on the graphed one; {text}")
+            check(diffs["graphed"] == 0, f"the graphed rollout is not the eager one: {text}")
+            for name in PPO_ROLLOUT_FAULTS:
+                check(name not in diffs or diffs[name] > 0,
+                      f"the check passes a replay of {name}: {text}")
+            parts.append(text)
+            del runs, base
+        shape = f"{PPO_ROLLOUT_CHECK['n_envs']} x {PPO_ROLLOUT_CHECK['n_steps']}"
+        return (f"two rollouts of {shape} from one seed, graphed against eager: "
+                + "; ".join(parts) + "; " + self.rollout_turns() + "; " + self.rollout_profile()
+                + f"; on {self.smi}")
+
+    def rollout_turns(self) -> str:
+        """Seconds of the eager and the graphed rollout in turns on one
+        learner of the cell's config (bf16): a rollout alone, timed to a
+        sync, and a whole iteration read by its loss as ``learn`` reads it;
+        then the reference config's (8 x 2048, f32) iterations in turns,
+        after one warm iteration of each path."""
+        from gym2048_tpu_torch.train import ppo
+
+        def turns(tr, state, fn):
+            secs = {"eager": [], "graphed": []}
+            order = ["graphed", "eager"]
+            for k in range(PPO_ROLLOUT_ROUNDS):
+                order += ["eager", "graphed"] if k % 2 == 0 else ["graphed", "eager"]
+            for i, name in enumerate(order):
+                use_rollout(tr, name)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = fn(tr, state)
+                if i >= 2:
+                    secs[name].append(time.perf_counter() - t0)
+            return state, secs
+
+        def rollout(tr, state):
+            tr._collect_rollout(state)
+            torch.cuda.synchronize()
+            return state
+
+        def iteration(tr, state):
+            state, metrics = tr.train_iteration(state)
+            check(math.isfinite(float(metrics["loss"])), "loss not finite")
+            return state
+
+        def said(label, secs, work):
+            med = {k: float(np.median(v)) for k, v in secs.items()}
+            return (f"{label} (median of {PPO_ROLLOUT_ROUNDS}) eager {med['eager']:.4f} ("
+                    + ", ".join(f"{x:.4f}" for x in secs["eager"]) + f"), graphed "
+                    f"{med['graphed']:.4f} (" + ", ".join(f"{x:.4f}" for x in secs["graphed"])
+                    + f"): {work / med['eager']:.0f} and {work / med['graphed']:.0f} steps/s, "
+                    f"x{med['eager'] / med['graphed']:.3f}")
+
+        out = []
+        for label, config, dtype in (("bf16", PPO_PRODUCTION, torch.bfloat16),
+                                     ("reference f32", PPO_REFERENCE, torch.float32)):
+            tr = ppo.PPO(ppo.PPOConfig(**config, compute_dtype=dtype), device=self.dev)
+            state = tr.init_state()
+            work = tr.cfg.rollout_size
+            if label == "bf16":
+                state, secs = turns(tr, state, rollout)
+                out.append(said("bf16 rollout seconds in turns", secs, work))
+            state, secs = turns(tr, state, iteration)
+            out.append(said(f"{label} iteration seconds in turns", secs, work))
+            del tr, state
+        return "; ".join(out)
+
+    def rollout_profile(self) -> str:
+        """One rollout of each path of the cell's config under
+        ``torch.profiler`` after a warm rollout of each: device operations,
+        host launches and graph launches an env step, and the counters."""
+        from gym2048_tpu_torch.train import ppo
+        from gym2048_tpu_torch.utils import profiler
+
+        tr = ppo.PPO(ppo.PPOConfig(**PPO_PRODUCTION, compute_dtype=torch.bfloat16),
+                     device=self.dev)
+        state = tr.init_state()
+        n_steps = tr.cfg.n_steps
+        for name in ("graphed", "eager"):
+            use_rollout(tr, name)
+            tr._collect_rollout(state)
+        prof = {}
+        for name in ("eager", "graphed"):
+            use_rollout(tr, name)
+            profiler.clear()
+            prof[name] = launch_profile(lambda: tr._collect_rollout(state), n_steps)
+            counters = profiler.summary()["counters"]
+            want = n_steps if name == "graphed" else 0
+            check(counters.get("ppo.rollout_replays", 0) == want
+                  and counters.get("ppo.rollout_steps", 0) == want,
+                  f"{name}: counters {counters} in a rollout of {n_steps} steps")
+        profiler.clear()
+        e, r = prof["eager"], prof["graphed"]
+        # a rollout's own launches beyond its steps' 3: the env state's 4
+        # copies in, the index's zeroing, 13 clones out and the last value
+        # forward (~106 in all on an H100, torch 2.11)
+        check(r["graph_launches"] == 1 and r["launches"] <= 3 + 150 / n_steps
+              and r["ops"] >= e["ops"] - 5,
+              f"the profiler lists {r['ops']:.1f} device operations and {r['launches']:.2f} "
+              f"host launches an env step against the eager step's {e['ops']:.1f} and "
+              f"{e['launches']:.1f}, {r['graph_launches']:.2f} graph launches")
+        return (f"profiled rollout of {n_steps} steps, eager / graphed: device operations an "
+                f"env step {e['ops']:.2f} / {r['ops']:.2f} (the graph's listed one by one), "
+                f"host launches an env step {e['launches']:.2f} / {r['launches']:.2f} "
+                f"({r['graph_launches']:.0f} a graph launch), device busy {e['busy_s']:.4f} / "
+                f"{r['busy_s']:.4f} s of {e['wall_s']:.4f} / {r['wall_s']:.4f} s, replays "
+                f"counted {n_steps}")
 
     # 19c
     def ppo_learning(self) -> str:
@@ -3624,6 +3887,7 @@ def main() -> int:
     smoke.run("19a", "cnn forward", smoke.cnn_forward)
     smoke.run("19b", "ppo throughput", smoke.ppo_throughput)
     smoke.run("19f", "ppo sgd graphed vs eager", smoke.ppo_sgd)
+    smoke.run("19g", "ppo rollout graphed vs eager", smoke.ppo_rollout)
     smoke.run("19c", "ppo learning", smoke.ppo_learning)
     smoke.run("19d", "bc", smoke.bc_epoch)
     smoke.run("19e", "ppo evaluation", smoke.ppo_evaluation)
@@ -3671,6 +3935,15 @@ def ppo_sgd_only() -> int:
     smoke = Smoke()
     smoke.run("1", "device", smoke.device)
     smoke.run("19f", "ppo sgd graphed vs eager", smoke.ppo_sgd)
+    print(smoke.smi, flush=True)
+    return 0
+
+
+def ppo_rollout_only() -> int:
+    """``--ppo-rollout``: the device and phase 19g alone."""
+    smoke = Smoke()
+    smoke.run("1", "device", smoke.device)
+    smoke.run("19g", "ppo rollout graphed vs eager", smoke.ppo_rollout)
     print(smoke.smi, flush=True)
     return 0
 
@@ -3984,6 +4257,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     parser.add_argument("--ppo-sgd", action="store_true",
                         help="instead of all the phases, run phases 1 and 19f (PPO's SGD "
                              "step replayed against the eager step)")
+    parser.add_argument("--ppo-rollout", action="store_true",
+                        help="instead of all the phases, run phases 1 and 19g (PPO's rollout "
+                             "step replayed against the eager step)")
     parser.add_argument("--dp-worker", metavar="OUTDIR",
                         help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
@@ -4001,4 +4277,6 @@ if __name__ == "__main__":
         sys.exit(td_tail_only())
     if args.ppo_sgd and torch.cuda.is_available():
         sys.exit(ppo_sgd_only())
+    if args.ppo_rollout and torch.cuda.is_available():
+        sys.exit(ppo_rollout_only())
     sys.exit(main())

@@ -12,10 +12,13 @@ Where the JAX module scans, this one loops in Python over the same steps;
 nothing leaves the device until :meth:`PPO.learn` reads an iteration's
 metrics. There is no kernel here: the CNN's convolutions and dense layers
 are cuDNN's and cuBLAS's, as they are XLA's in JAX, and the env is
-``env/batched.py``. On a CUDA device with one rank each SGD step is one
-CUDA graph replay (:class:`_SgdGraph`): the forward, the loss, the
-backward, the clip and Adam launched at once, on static buffers that the
-step's minibatch is copied into.
+``env/batched.py``. On a CUDA device with one rank each rollout step is
+one CUDA graph replay (:class:`_RolloutGraph`): the policy's forward, the
+mask, the Gumbel-max sampling, the env step and the trajectory's writes
+launched at once, on static buffers that the step's uniforms are drawn
+into; and each SGD step is one (:class:`_SgdGraph`): the forward, the loss,
+the backward, the clip and Adam, on static buffers that the step's
+minibatch is copied into.
 
 The optimiser is optax's ``chain(clip_by_global_norm(max_grad_norm),
 adam(schedule, eps=1e-5))``:
@@ -79,11 +82,10 @@ from gym2048_tpu_torch.models.resnet import (ActorCritic, boards_to_model_input,
                                              sync_batch_norm)
 from gym2048_tpu_torch.ops import returns as returns_ops
 from gym2048_tpu_torch.parallel import mesh as pmesh
-from gym2048_tpu_torch.utils import profiler
+from gym2048_tpu_torch.utils import graphs, profiler
 
 _NEG = -1e9
 _TINY = torch.finfo(torch.float32).tiny
-_WARMUP = 2  # eager SGD steps of a graphed step's holder before its capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,6 +279,24 @@ class Transition:
     highest: torch.Tensor  # int32
     ep_len: torch.Tensor   # int32, the episode length including this step
 
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    @classmethod
+    def empty(cls, t_len: int, b: int, device: torch.device) -> Transition:
+        """An uninitialised ``(t_len, b, ...)`` rollout on ``device``."""
+        def new(dtype, *shape):
+            return torch.empty((t_len, b, *shape), dtype=dtype, device=device)
+
+        f32, i32 = torch.float32, torch.int32
+        return cls(board=new(torch.int8, 4, 4), action=new(i32), logprob=new(f32),
+                   value=new(f32), reward=new(f32), done=new(torch.bool), score=new(f32),
+                   highest=new(i32), ep_len=new(i32))
+
+
+def _env_tensors(env_state: batched.EnvState) -> tuple[torch.Tensor, ...]:
+    return tuple(getattr(env_state, f.name) for f in dataclasses.fields(env_state))
+
 
 @dataclasses.dataclass(frozen=True)
 class UpdateBatch:
@@ -345,6 +365,13 @@ def ppo_loss_terms(logits: torch.Tensor, value: torch.Tensor, action: torch.Tens
     return policy_loss, value_loss, entropy, approx_kl, clip_frac
 
 
+def _kernel_flags() -> tuple:
+    """torch's settings that choose the kernels a CUDA graph captures."""
+    b = torch.backends
+    return (torch.are_deterministic_algorithms_enabled(), b.cudnn.deterministic,
+            b.cudnn.benchmark, b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+
+
 # the update's metrics, in the order _sgd_step stacks them
 _AUX = ("loss", "policy_loss", "value_loss", "entropy", "approx_kl", "clip_frac")
 
@@ -356,11 +383,11 @@ class _SgdGraph:
     train mode (BatchNorm's running statistics updated), the legal mask, the
     loss terms, the backward into gradients that start from none, then
     :meth:`Optimizer.advance` on the host and :meth:`Optimizer.apply`. The
-    first :data:`_WARMUP` steps run the eager step (on a CUDA device on a
-    side stream), as real steps of their minibatches; on a CUDA device the
-    next step is captured once as a CUDA graph, and it and every later step
-    is a replay; elsewhere a replay calls the same code. A step returns a
-    copy of :attr:`aux`, which later steps leave as it is."""
+    first :data:`graphs.WARMUP` steps run the eager step instead, as real
+    steps of their minibatches; on a CUDA device the next step is captured
+    once as a CUDA graph, and it and every later step is a replay
+    (:class:`graphs.GraphedStep`); elsewhere a replay calls the same code. A
+    step returns a copy of :attr:`aux`, which later steps leave as it is."""
 
     def __init__(self, key: tuple, state: TrainState, mb: UpdateBatch):
         self.key, self.model, self.optimizer = key, state.model, state.optimizer
@@ -368,9 +395,7 @@ class _SgdGraph:
         dev = mb.board.device
         self.inputs = mb.map(torch.empty_like)
         self.aux = torch.zeros(len(_AUX), device=dev)
-        self.warm = 0
-        self.side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        self.graph = None
+        self.graphed = graphs.GraphedStep(self._run, "ppo.sgd_replays", dev)
 
     @staticmethod
     def key_of(trainer: PPO, state: TrainState, mb: UpdateBatch) -> tuple:
@@ -380,7 +405,6 @@ class _SgdGraph:
         and torch's settings that choose kernels."""
         cfg, model, opt = trainer.cfg, state.model, state.optimizer
         adam = opt.adam.state
-        b = torch.backends
         return ((cfg.compute_dtype, cfg.mask_illegal, cfg.clip_coef, cfg.ent_coef, cfg.vf_coef,
                  opt.max_norm),
                 tuple((x.shape, x.dtype, x.device) for x in mb.tensors()),
@@ -388,8 +412,7 @@ class _SgdGraph:
                 tuple(t.data_ptr() for t in model.parameters()),
                 tuple(t.data_ptr() for t in model.buffers()),
                 tuple(s[k].data_ptr() for s in adam.values() for k in ("exp_avg", "exp_avg_sq")),
-                (torch.are_deterministic_algorithms_enabled(), b.cudnn.deterministic,
-                 b.cudnn.benchmark, b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32))
+                _kernel_flags())
 
     def _run(self, trainer: PPO) -> None:
         """One step on the buffers (what the graph holds)."""
@@ -398,22 +421,6 @@ class _SgdGraph:
         self.optimizer.apply()
         self.aux.copy_(torch.stack([loss, *terms]).detach())
 
-    def _eager(self, trainer: PPO, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
-        if self.side is None:
-            return trainer._sgd_eager(state, mb)
-        current = torch.cuda.current_stream(self.side.device)
-        self.side.wait_stream(current)
-        with torch.cuda.stream(self.side):
-            aux = trainer._sgd_eager(state, mb)
-        current.wait_stream(self.side)
-        return aux
-
-    def _capture(self, trainer: PPO) -> torch.cuda.CUDAGraph:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._run(trainer)
-        return graph
-
     def load(self, mb: UpdateBatch) -> None:
         """Copy the step's minibatch into :attr:`inputs`."""
         for buf, x in zip(self.inputs.tensors(), mb.tensors()):
@@ -421,20 +428,116 @@ class _SgdGraph:
 
     def step(self, trainer: PPO, state: TrainState, mb: UpdateBatch) -> torch.Tensor:
         """One SGD step of ``trainer`` on ``mb`` -> its ``_AUX`` metrics ``(6,)``."""
-        if self.warm < _WARMUP:
-            self.warm += 1
-            return self._eager(trainer, state, mb)
+        if self.graphed.warming:
+            return self.graphed.eager(trainer._sgd_eager, state, mb)
         with profiler.span("ppo.sgd"):
             self.load(mb)
             self.optimizer.advance()
-            if self.side is None:
-                self._run(trainer)
-            else:
-                if self.graph is None:
-                    self.graph = self._capture(trainer)
-                self.graph.replay()
-                profiler.count("ppo.sgd_replays", 1)
+            self.graphed.replay(trainer)
             return self.aux.clone()
+
+
+class _RolloutGraph:
+    """The rollout of :meth:`PPO._collect_rollout`, a step at a time on
+    static buffers: :attr:`env`, the env state that a step reads and writes
+    back; :attr:`u_act` and :attr:`u_env`, the whole batch's uniforms of a
+    step (each rank reads its block); :attr:`traj`, the whole ``(n_steps,
+    n_local, ...)`` trajectory, whose row :attr:`step` (a device index) a
+    step writes. A step (:meth:`_run`) is the moves, the policy in eval mode,
+    the mask, the Gumbel-max on the action's uniforms, the logprob and the
+    env step on the env's. On a CUDA device with one rank it is one CUDA
+    graph replay after its warm-ups (:class:`graphs.GraphedStep`); the
+    graph reads no generator and no host scalar, so the step's uniforms are
+    drawn into the buffers before each replay, in the order and shapes of
+    every other step's draws. Elsewhere (the CPU, data parallel) each step
+    is a plain call that draws its uniforms itself. A rollout returns copies
+    of the trajectory and of the env state, which later rollouts leave as
+    they are."""
+
+    def __init__(self, key: tuple, trainer: PPO, state: TrainState):
+        dev, cfg, b = trainer.device, trainer.cfg, trainer.n_local
+        self.key, self.model = key, state.model
+        self.env = batched.EnvState(*map(torch.empty_like, _env_tensors(state.env_state)))
+        self.traj = Transition.empty(cfg.n_steps, b, dev)
+        self.u_act = torch.empty((cfg.n_envs, 4), device=dev)
+        self.u_env = torch.empty((cfg.n_envs, 6), device=dev)
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        # graphed with one rank only, as the SGD step: data parallel steps
+        # eagerly
+        self.graphed = graphs.GraphedStep(self._run, "ppo.rollout_replays",
+                                          dev if trainer.group is None else None)
+
+    @staticmethod
+    def key_of(trainer: PPO, state: TrainState) -> tuple:
+        """What a capture fixes: the envs, steps and device, the policy's
+        precision and mask, the env's config, the model's object and the
+        memory of its parameters and buffers (BatchNorm's running statistics
+        are read where the SGD step updates them), and torch's settings
+        that choose kernels."""
+        cfg, model = trainer.cfg, state.model
+        return ((trainer.n_local, cfg.n_envs, cfg.n_steps, trainer.device, cfg.compute_dtype,
+                 cfg.mask_illegal, trainer.env_cfg),
+                id(model),
+                tuple(t.data_ptr() for t in model.parameters()),
+                tuple(t.data_ptr() for t in model.buffers()),
+                _kernel_flags())
+
+    def draw(self, generator: torch.Generator, u: torch.Tensor) -> None:
+        """The whole batch's uniforms into ``u`` (:attr:`u_act` or :attr:`u_env`)."""
+        torch.rand(u.shape, generator=generator, out=u)
+
+    def _run(self, trainer: PPO, generator: torch.Generator | None = None) -> None:
+        """One step on the buffers (what the graph holds). With
+        ``generator`` the step draws its uniforms first, each where the
+        eager step of PPO always drew it (the action's in ``ppo.policy``)."""
+        cfg, env = trainer.cfg, self.env
+        rows = slice(trainer.rank * trainer.n_local, (trainer.rank + 1) * trainer.n_local)
+        products = batched.move_products(env)
+        with profiler.span("ppo.policy"):
+            logits, value = trainer._policy(self.model, env.board)
+            if cfg.mask_illegal:
+                # one move_all serves both the policy mask and the env step
+                logits = torch.where(products[2], logits, _NEG)
+            if generator is not None:
+                self.draw(generator, self.u_act)
+            # Gumbel max over uniforms in [tiny, 1): jax.random.categorical's law
+            u = self.u_act[rows].clamp_min(_TINY)
+            action = (logits - torch.log(-torch.log(u))).argmax(-1)
+            logprob = torch.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
+        if generator is not None:
+            self.draw(generator, self.u_env)
+        new, ts = batched.step_with_products(env, action, products, trainer.env_cfg,
+                                             u=self.u_env[rows])
+        fields = (env.board, action, logprob, value, ts.reward, ts.terminated, ts.score,
+                  ts.highest, ts.steps)
+        for buf, x in zip(self.traj.tensors(), fields):
+            buf.index_copy_(0, self.step, x.to(buf.dtype)[None])
+        for buf, x in zip(_env_tensors(env), _env_tensors(new)):
+            buf.copy_(x)
+        self.step.add_(1)
+
+    def rollout(self, trainer: PPO, state: TrainState) -> tuple[Transition, batched.EnvState]:
+        """``n_steps`` steps from ``state.env_state`` with ``state.generator``'s
+        draws -> copies of the trajectory and of the env state after it."""
+        gen, graphed = state.generator, self.graphed
+        for buf, x in zip(_env_tensors(self.env), _env_tensors(state.env_state)):
+            buf.copy_(x)
+        self.step.zero_()
+        for _ in range(trainer.cfg.n_steps):
+            # the env span holds the step: its draws and its replay, or,
+            # eagerly, its own work (the draws, the moves, the env step, the
+            # writes) around the step's policy span
+            with profiler.span("ppo.env"):
+                if graphed.captures and not graphed.warming:
+                    self.draw(gen, self.u_act)
+                    self.draw(gen, self.u_env)
+                    graphed.replay(trainer)
+                else:
+                    graphed.eager(self._run, trainer, gen)
+                if graphed.captures:
+                    profiler.count("ppo.rollout_steps", 1)
+        return (Transition(*(x.clone() for x in self.traj.tensors())),
+                batched.EnvState(*(x.clone() for x in _env_tensors(self.env))))
 
 
 class PPO:
@@ -476,6 +579,7 @@ class PPO:
         # one rank, where no collective runs inside the step
         self.graph_sgd = self.device.type == "cuda" and self.group is None
         self._sgd_graph = None
+        self._rollout_graph = None  # the _RolloutGraph of _collect_rollout
 
     # ------------------------------------------------------------------ init
     def make_optimizer(self, model: ActorCritic) -> Optimizer:
@@ -516,48 +620,18 @@ class PPO:
     @torch.no_grad()
     def _collect_rollout(self, state: TrainState):
         """``n_steps`` env steps under the policy -> ``(Transition (T, B,
-        ...), last_value (B,))``; advances ``state.env_state``."""
-        cfg, dev, gen = self.cfg, self.device, state.generator
-        t_len, b = cfg.n_steps, self.n_local
+        ...), last_value (B,))``, tensors of their own; advances
+        ``state.env_state``. The steps run on a :class:`_RolloutGraph`'s
+        buffers (on a CUDA device with one rank one CUDA graph replay a step
+        after its warm-ups), built at the first rollout and again when what
+        its capture fixes changes (:meth:`_RolloutGraph.key_of`: new shapes,
+        settings or model)."""
         model = state.model.eval()
-        traj = Transition(
-            board=torch.empty((t_len, b, 4, 4), dtype=torch.int8, device=dev),
-            action=torch.empty((t_len, b), dtype=torch.int32, device=dev),
-            logprob=torch.empty((t_len, b), dtype=torch.float32, device=dev),
-            value=torch.empty((t_len, b), dtype=torch.float32, device=dev),
-            reward=torch.empty((t_len, b), dtype=torch.float32, device=dev),
-            done=torch.empty((t_len, b), dtype=torch.bool, device=dev),
-            score=torch.empty((t_len, b), dtype=torch.float32, device=dev),
-            highest=torch.empty((t_len, b), dtype=torch.int32, device=dev),
-            ep_len=torch.empty((t_len, b), dtype=torch.int32, device=dev),
-        )
-        env_state = state.env_state
-        for t in range(t_len):
-            # the env span holds the step's policy span: one of each a step,
-            # the env's own work (the moves, the step, the writes) its self time
-            with profiler.span("ppo.env"):
-                products = batched.move_products(env_state)
-                with profiler.span("ppo.policy"):
-                    logits, value = self._policy(model, env_state.board)
-                    if cfg.mask_illegal:
-                        # one move_all serves both the policy mask and the env step
-                        logits = torch.where(products[2], logits, _NEG)
-                    # Gumbel max over uniforms in [tiny, 1): jax.random.categorical's law
-                    u = self._uniform(gen, (cfg.n_envs, 4)).clamp_min(_TINY)
-                    action = (logits - torch.log(-torch.log(u))).argmax(-1)
-                    logprob = torch.log_softmax(logits, -1).gather(-1, action[:, None])[:, 0]
-                traj.board[t] = env_state.board
-                env_state, ts = batched.step_with_products(
-                    env_state, action, products, self.env_cfg,
-                    u=self._uniform(gen, (cfg.n_envs, 6)))
-                traj.action[t] = action
-                traj.logprob[t] = logprob
-                traj.value[t] = value
-                traj.reward[t] = ts.reward
-                traj.done[t] = ts.terminated
-                traj.score[t] = ts.score
-                traj.highest[t] = ts.highest
-                traj.ep_len[t] = ts.steps
+        key = _RolloutGraph.key_of(self, state)
+        if self._rollout_graph is None or self._rollout_graph.key != key:
+            self._rollout_graph = None  # the old graph and buffers go first
+            self._rollout_graph = _RolloutGraph(key, self, state)
+        traj, env_state = self._rollout_graph.rollout(self, state)
         with profiler.span("ppo.policy"):
             _, last_value = self._policy(model, env_state.board)
         state.env_state = env_state

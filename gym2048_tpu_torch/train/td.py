@@ -65,11 +65,10 @@ from gym2048_tpu_torch.env.batched import _fresh_boards
 from gym2048_tpu_torch.models import ntuple, ntuple_big
 from gym2048_tpu_torch.models.ntuple import _tc_combine, stage_of_batch
 from gym2048_tpu_torch.parallel import mesh as pmesh
-from gym2048_tpu_torch.utils import profiler
+from gym2048_tpu_torch.utils import graphs, profiler
 from gym2048_tpu_torch.utils.checkpoint import load_model, save_model
 
 _PENDING = ("tc_ps", "tc_pa", "tc_pc")  # delayed-TC sums, |sums|, counts
-_WARMUP = 2  # eager runs of a step's tail before its capture
 _SYNC_EVERY = 64  # play_greedy's moves between host checks for a live game
 
 
@@ -175,10 +174,11 @@ class _StepTail:
     TC the update (the TD error and the scatter-accumulate into the pending
     sums), then the episode bookkeeping, the spawn, the fresh boards, the
     carousel and the reset, the step's leaves written into :attr:`carry`
-    and its stats into row ``step`` of :attr:`stats`. On a CUDA device it
-    is captured once as a CUDA graph (after :data:`_WARMUP` eager runs on a
-    side stream) and each :meth:`replay` launches the graph; elsewhere a
-    replay calls the same code.
+    and its stats into row ``step`` of :attr:`stats`. On a CUDA device
+    each :meth:`replay` after the first :data:`graphs.WARMUP` (eager, on a
+    side stream, as real steps) launches one CUDA graph of it, captured at
+    the first (:class:`graphs.GraphedStep`); elsewhere a replay calls the
+    same code.
 
     The buffers: :attr:`u`, the step's draw (:meth:`TDTrainer._draws`
     writes it); the inputs ``after``, ``r``, ``v_after``, ``alive`` that a
@@ -204,7 +204,7 @@ class _StepTail:
                       torch.zeros(length, dtype=boards.dtype, device=dev))
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
         self.dirty = False  # pending sums left by a scan that did not end
-        self.graph = self._capture() if dev.type == "cuda" else None
+        self.graphed = graphs.GraphedStep(self._run, "td.tail_replays", dev)
 
     @staticmethod
     def key_of(carry: dict, length: int) -> tuple:
@@ -228,23 +228,6 @@ class _StepTail:
             buf.index_copy_(0, self.step, s.reshape(1))
         self.step.add_(1)
 
-    def _capture(self) -> torch.cuda.CUDAGraph:
-        current = torch.cuda.current_stream(self.u.device)
-        side = torch.cuda.Stream(self.u.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(_WARMUP):
-                self.step.zero_()
-                self._run()
-        current.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._run()
-        for p in _PENDING:  # the warm-up's sums
-            if p in self.carry:
-                self.carry[p].zero_()
-        return graph
-
     def load(self, carry: dict) -> dict:
         """Copy ``carry``'s step leaves into the buffers for a scan;
         returns the buffers (the pending sums among them)."""
@@ -262,11 +245,10 @@ class _StepTail:
         """One step's tail on the greedy search's results."""
         for buf, x in zip(self.inputs, (after, r, v_after, alive)):
             buf.copy_(x)
-        if self.graph is None:
-            self._run()
+        if self.graphed.warming:
+            self.graphed.eager(self._run)
         else:
-            self.graph.replay()
-            profiler.count("td.tail_replays", 1)
+            self.graphed.replay()
 
     def unload(self, state: dict) -> tuple[dict, tuple]:
         """The scan's result: ``state`` with copies of the step leaves in

@@ -19,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gym2048_tpu_torch.train import ppo
 from gym2048_tpu_torch.utils import checkpoint as tck
-from gym2048_tpu_torch.utils import profiler
+from gym2048_tpu_torch.utils import graphs, profiler
 
 # 8 SGD steps an iteration (2 epochs of 4 minibatches); both shuffles allowed
 TINY = dict(total_timesteps=3 * 64, n_envs=8, n_steps=8, batch_size=16, n_epochs=2,
@@ -101,7 +101,8 @@ def test_buffered_iterations_equal_eager(anneal_lr, mask_illegal, shuffle_mode):
     assert_same_state(a, b)
     assert eager._sgd_graph is None
     holder = buffered._sgd_graph
-    assert holder.warm == ppo._WARMUP and holder.graph is None  # off the card nothing is captured
+    # off the card nothing is captured
+    assert holder.graphed.warm == graphs.WARMUP and holder.graphed.graph is None
     assert b.optimizer.adam.param_groups[0]["lr"] == buffered.lr_fn(2 * STEPS - 1)
 
 
@@ -131,7 +132,7 @@ def test_loading_the_optimizer_rebuilds_the_holder():
         kept = keep_steps(tr)
         state = iterations(tr, state, 1)
         if graph:
-            assert tr._sgd_graph is not first and tr._sgd_graph.warm == ppo._WARMUP
+            assert tr._sgd_graph is not first and tr._sgd_graph.graphed.warm == graphs.WARMUP
             key = ppo._SgdGraph.key_of(tr, state, ppo.UpdateBatch(*first.inputs.tensors()))
             assert key == tr._sgd_graph.key != first.key
         states.append((state, kept))
@@ -183,7 +184,7 @@ def test_spans_and_counters(graph):
     for k, summary in enumerate(calls):
         assert summary["counters"] == {"ppo.sgd_steps": STEPS}
         spans = {name: s["calls"] for name, s in summary["spans"].items()}
-        eager_steps = (ppo._WARMUP if k == 0 else 0) if graph else STEPS
+        eager_steps = (graphs.WARMUP if k == 0 else 0) if graph else STEPS
         for name in ("ppo.forward", "ppo.backward", "ppo.optimizer"):
             assert spans.get(name, 0) == eager_steps, (k, name)
         assert spans.get("ppo.sgd", 0) == STEPS - eager_steps, k

@@ -92,7 +92,7 @@ def test_replayed_step_matches_jax(mode):
             assert_bits(got[k], want[k], k)
     for g, w in zip(gstats, wstats):
         assert_bits(g, w)
-    assert ttr._tail.graph is None  # off the card nothing is captured
+    assert ttr._tail.graphed.graph is None  # off the card nothing is captured
 
 
 # delayed TC with and without the carousel, TC and plain TD on every step,
