@@ -31,10 +31,10 @@ counts:
   unstaged 4x6 TC config of ``docs/curves/td_4x6_tc_run.jsonl`` must reach
   an episode score inside the band that the JAX runs bracket. Each step's
   tail (everything after the greedy search) is one CUDA graph replay on
-  the card; phase 15g holds two chunks of it against the eager step, bit
-  for bit in deterministic mode (also for the small net's and bench.py's
-  learners), profiles both and times them in turns (``--td-tail`` runs
-  that phase alone);
+  the card; phase 15g holds two chunks of the step against the same step
+  written out on fresh tensors (``reference_td_steps``), bit for bit in
+  deterministic mode (also for the small net's and bench.py's learners),
+  and profiles both (``--td-tail`` runs that phase alone);
 * the small 17 x 4-cell TD learner (the learner's default ``--arch
   small``): the config of ``docs/curves/ntuple_table_tc1b.pkl`` at full
   width (8192 envs, TC, the 1,419,857-entry table), one 64-step chunk, one
@@ -248,9 +248,9 @@ TD_LEARN = dict(n_envs=8192, chunk_steps=64, arch="4x6", tc=True, alpha=1.0,
 TD_LEARN_BAND = (24_800.0, 65_000.0)
 TD_REPLAY_STEPS = 16       # the deterministic kernel-vs-plain chunk
 TD_TIMED_CHUNKS = 3
-# Phase 15g, the step tail as a CUDA graph replay against the eager step:
-# chunks each path runs from one state, and timing rounds in turns
-TD_TAIL_CHUNKS, TD_TAIL_ROUNDS = 2, 3
+# Phase 15g, the TD step (its tail a CUDA graph replay) against the reference
+# step: chunks each runs from one state
+TD_TAIL_CHUNKS = 2
 # the learners of bench.py's bench_td (the small net, split lookup, no TC)
 # and bench_td_big (4x6 TC, unstaged, TC on every step)
 TD_BENCH_SMALL = dict(n_envs=8192, chunk_steps=64, alpha=0.1, alpha_final=0.1,
@@ -884,6 +884,40 @@ def reference_rollout(tr, state):
     return traj, last_value
 
 
+def reference_td_steps(tr, carry: dict, alpha, length: int):
+    """``tr._scan_steps(carry, alpha, length)`` written out step by step, on
+    fresh tensors each step and without static buffers or a graph: the draw
+    from the carry's generator into a new buffer (``tr._draws``), the greedy
+    search (``td._greedy_batch``), then the trainer's ``_update`` and
+    ``_restart`` step functions; with delayed TC the update accumulates
+    into pending sums made for this call, combined into the table at the
+    end of every window of ``tc_every`` steps. Returns ``(carry, stats)``
+    as ``_scan_steps`` does: a new carry (the given one's generator,
+    advanced) and the per-step stats stacked ``(length,)``."""
+    from gym2048_tpu_torch.train import td
+
+    k, defer = tr._windows(length), tr._defer_tc
+    update, restart, values = tr._update(alpha, defer), tr._restart(), tr._values()
+    gen, (n, dev) = carry["generator"], (carry["boards"].shape[0], carry["boards"].device)
+    carry = dict(carry)
+    if defer:
+        carry.update((p, torch.zeros_like(carry["table"])) for p in td._PENDING)
+    stats = []
+    for t in range(length):
+        draws = tr._draws(gen, torch.empty((10 if tr.cfg.carousel else 6, n), device=dev))
+        _, after, r, v_after, alive = td._greedy_batch(values.make_value_fn(carry["table"]),
+                                                       carry["boards"])
+        new = dict(carry)
+        update(carry, new, r, v_after, alive)
+        stats.append(restart(carry, new, draws, after, r, v_after, alive))
+        carry = new
+        if defer and (t + 1) % k == 0:
+            tr._combine(carry, alpha)
+    for p in td._PENDING:
+        carry.pop(p, None)
+    return carry, tuple(torch.stack(s) for s in zip(*stats))
+
+
 def use_rollout(tr, name: str) -> None:
     """Make ``tr``'s rollout its own (``"graphed"``: on the card one CUDA
     graph replay a step) or :func:`reference_rollout` (``"eager"``)."""
@@ -988,8 +1022,9 @@ def timed_chunks(trainer, state, chunks: int):
 
 
 def scan_chunks(trainer, scan, state: dict, chunks: int):
-    """``chunks`` chunks of ``scan`` (the trainer's ``_scan_replayed`` or
-    ``_scan_eager``) from a copy of ``state`` at the config's ``alpha``, as
+    """``chunks`` chunks of ``scan`` (the trainer's ``_scan_steps`` or
+    :func:`reference_td_steps` for it) from a copy of ``state`` at the
+    config's ``alpha``, as
     ``train_chunk`` runs them, each host-timed to a device sync; returns the
     state, each chunk's stacked stats and seconds."""
     state = clone_state(state)
@@ -2069,104 +2104,86 @@ class Smoke:
 
     # 15g
     def td_tail(self) -> str:
-        """The TD step's tail as one CUDA graph replay (``_scan_replayed``)
-        against the eager step (``_scan_eager``, the step of
-        ``_chunk_body``), from one state after a chunk, for the flagship,
-        the learner of phase 17 (tc1b) and those of bench.py's ``bench_td``
-        and ``bench_td_big``, whose updates stay eager: in deterministic
-        mode two chunks of each leave every leaf, the generator and every
-        stat identical; chunk seconds of each in turns. For the flagship
-        also: the change gap in the default mode under td-4x6-tc's limit,
-        one chunk of each profiled (device operations, host launches a step,
-        the replay counter), and the replayed chunk's host time a step."""
+        """The TD step (``TDTrainer._scan_steps``, its tail one CUDA graph
+        replay a step) against the same step written out on fresh tensors
+        (:func:`reference_td_steps`), from one state after a chunk, for the
+        flagship, the learner of phase 17 (tc1b) and those of bench.py's
+        ``bench_td`` and ``bench_td_big``, whose updates stay eager: in
+        deterministic mode two chunks of each leave every leaf, the
+        generator and every stat identical. For the flagship also: the
+        change gap in the default mode under td-4x6-tc's limit, one chunk
+        of each profiled (device operations, host launches a step, the
+        replay counter), and the program's chunk's host time a step."""
         from gym2048_tpu_torch.train import td
 
         parts = []
         for label, config in (("flagship", TD_FLAGSHIP), ("tc1b", TD_SMALL),
                               ("bench_td", TD_BENCH_SMALL), ("bench_td_big", TD_BENCH_BIG)):
             tr = td.TDTrainer(td.TDConfig(**config), device=self.dev)
-            state, _, _ = scan_chunks(tr, tr._scan_eager, tr.init_state(), 1)
+            reference = functools.partial(reference_td_steps, tr)
+            state, _ = tr.train_chunk(tr.init_state(), tr.cfg.alpha)
             torch.use_deterministic_algorithms(True)
             try:
-                eager, es, _ = scan_chunks(tr, tr._scan_eager, state, TD_TAIL_CHUNKS)
-                replayed, rs, rsecs = scan_chunks(tr, tr._scan_replayed, state, TD_TAIL_CHUNKS)
+                want, ws, _ = scan_chunks(tr, reference, state, TD_TAIL_CHUNKS)
+                got, gs, secs = scan_chunks(tr, tr._scan_steps, state, TD_TAIL_CHUNKS)
             finally:
                 torch.use_deterministic_algorithms(False)
             check(tr._tail.graphed.graph is not None, f"{label}: no graph was captured")
-            bad = state_diffs(eager, replayed)
-            check(not bad, f"{label}: the replayed chunks differ from the eager ones in {bad}")
-            check(all(torch.equal(a, b) for x, y in zip(es, rs) for a, b in zip(x, y)),
-                  f"{label}: the replayed chunks' stats differ")
-            del eager, replayed
+            bad = state_diffs(want, got)
+            check(not bad, f"{label}: the chunks differ from the reference's in {bad}")
+            check(all(torch.equal(a, b) for x, y in zip(ws, gs) for a, b in zip(x, y)),
+                  f"{label}: the chunks' stats differ from the reference's")
+            del want, got
             parts.append(f"{label}: deterministic, {TD_TAIL_CHUNKS} chunks of "
-                         f"{tr.cfg.chunk_steps} steps identical in all {len(state)} leaves "
-                         f"and the stats (the first replayed chunk, capture included, "
-                         f"{rsecs[0]:.3f} s, the next {rsecs[-1]:.3f} s); "
-                         + self.tail_turns(tr, state))
+                         f"{tr.cfg.chunk_steps} steps identical to the reference in all "
+                         f"{len(state)} leaves and the stats (the first chunk, capture "
+                         f"included, {secs[0]:.3f} s, the next {secs[-1]:.3f} s)")
             if label == "flagship":
                 parts.append(self.tail_flagship(tr, state))
             del tr, state
         return "; ".join(parts) + f"; on {self.smi}"
 
-    @staticmethod
-    def tail_turns(tr, state: dict) -> str:
-        """Seconds of one chunk of ``tr`` from ``state``, eager and
-        replayed in turns (the default mode)."""
-        secs = {"eager": [], "replayed": []}
-        for k in range(TD_TAIL_ROUNDS):
-            for name in (("eager", "replayed") if k % 2 == 0 else ("replayed", "eager")):
-                scan = tr._scan_eager if name == "eager" else tr._scan_replayed
-                secs[name] += scan_chunks(tr, scan, state, 1)[2]
-        med = {k: float(np.median(v)) for k, v in secs.items()}
-        work = tr.cfg.chunk_steps * tr.cfg.n_envs
-        return (f"chunk seconds in turns (median of {TD_TAIL_ROUNDS}), eager "
-                f"{med['eager']:.4f} ({', '.join(f'{x:.4f}' for x in secs['eager'])}), "
-                f"replayed {med['replayed']:.4f} "
-                f"({', '.join(f'{x:.4f}' for x in secs['replayed'])}): "
-                f"{work / med['eager']:.0f} and {work / med['replayed']:.0f} steps/s, "
-                f"x{med['eager'] / med['replayed']:.3f}")
-
     def tail_flagship(self, tr, state: dict) -> str:
         """Phase 15g's flagship readings: the default mode's change gap,
-        one profiled chunk of each path and the replayed chunk's host time
-        a step."""
+        one profiled chunk of the program and of the reference and the
+        program's chunk's host time a step."""
         from gym2048_tpu_torch.utils import profiler
 
-        eager, _, _ = scan_chunks(tr, tr._scan_eager, state, TD_TAIL_CHUNKS)
-        replayed, _, _ = scan_chunks(tr, tr._scan_replayed, state, TD_TAIL_CHUNKS)
-        gap, limit = change_gap(state, eager, replayed)
+        reference = functools.partial(reference_td_steps, tr)
+        want, _, _ = scan_chunks(tr, reference, state, TD_TAIL_CHUNKS)
+        got, _, _ = scan_chunks(tr, tr._scan_steps, state, TD_TAIL_CHUNKS)
+        gap, limit = change_gap(state, want, got)
         check(gap <= limit, f"default mode: change gap {gap:.3e}")
-        differ = state_diffs(eager, replayed)
-        del eager, replayed
+        differ = state_diffs(want, got)
+        del want, got
         steps = tr.cfg.chunk_steps
         prof = {}
         alpha = torch.as_tensor(tr.cfg.alpha, dtype=torch.float32)
-        for name, scan in (("eager", tr._scan_eager), ("replayed", tr._scan_replayed)):
+        for name, scan in (("reference", reference), ("program", tr._scan_steps)):
             start = clone_state(state)
             profiler.clear()
             prof[name] = launch_profile(lambda: scan(start, alpha, steps), steps)
             replays = profiler.summary()["counters"].get("td.tail_replays", 0)
-            check(replays == (steps if name == "replayed" else 0),
+            check(replays == (steps if name == "program" else 0),
                   f"{name}: {replays} tail replays counted in {steps} steps")
         profiler.clear()
-        e, r = prof["eager"], prof["replayed"]
+        e, r = prof["reference"], prof["program"]
         check(r["graph_launches"] == 1 and r["ops"] >= e["ops"] - 5,
               f"the profiler lists {r['ops']:.1f} device operations a step against the "
-              f"eager step's {e['ops']:.1f}, {r['graph_launches']:.2f} graph launches")
+              f"reference step's {e['ops']:.1f}, {r['graph_launches']:.2f} graph launches")
         host = self.tail_host_us(tr, state)
         return (f"flagship default mode: change gap {gap:.3e} (limit {limit}), "
-                f"leaves that differ {differ}; profiled chunk, eager / replayed: device "
+                f"leaves that differ {differ}; profiled chunk, reference / program: device "
                 f"operations a step {e['ops']:.1f} / {r['ops']:.1f} (the graph's listed one by "
                 f"one), host launches a step {e['launches']:.1f} / {r['launches']:.1f} "
-                f"({r['graph_launches']:.0f} a graph launch), device busy {e['busy_s']:.4f} / "
-                f"{r['busy_s']:.4f} s of {e['wall_s']:.4f} / {r['wall_s']:.4f} s; untraced "
-                f"host us a step of the replayed chunk: "
-                + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+                f"({r['graph_launches']:.0f} a graph launch); the program's device busy "
+                f"{r['busy_s']:.4f} s of {r['wall_s']:.4f} s; untraced host us a step of its "
+                f"chunk: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
 
     @staticmethod
     def tail_host_us(tr, state: dict) -> dict[str, float]:
-        """Host microseconds a step of one replayed chunk of ``tr`` from a
-        copy of ``state``, with no profiler: in the greedy search, in the
+        """Host microseconds a step of one chunk of ``tr`` from a copy of
+        ``state``, with no profiler: in the greedy search, in the
         tail's replay (its copies and the graph launch) and in the rest of
         the chunk (the draws, the combines, the loads and copies out)."""
         from gym2048_tpu_torch.train import td
@@ -2189,7 +2206,7 @@ class Smoke:
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            tr._scan_replayed(start, alpha, tr.cfg.chunk_steps)
+            tr._scan_steps(start, alpha, tr.cfg.chunk_steps)
             host = time.perf_counter() - t0
             torch.cuda.synchronize()
         finally:
@@ -3876,7 +3893,7 @@ def main() -> int:
     smoke.run("15d", "td throughput", smoke.td_throughput)
     smoke.run("15e", "td profile", smoke.td_profile)
     smoke.run("15f", "td learning", smoke.td_learning)
-    smoke.run("15g", "td tail replayed vs eager", smoke.td_tail)
+    smoke.run("15g", "td step vs reference", smoke.td_tail)
     smoke.run("17a", "td small path", smoke.td_small_path)
     smoke.run("17b", "td small gather", smoke.td_small_gather)
     smoke.run("17c", "td small kernel vs plain", smoke.td_small_replay)
@@ -3925,7 +3942,7 @@ def td_tail_only() -> int:
     smoke = Smoke()
     smoke.run("1", "device", smoke.device)
     smoke.run("2", "build", smoke.build)
-    smoke.run("15g", "td tail replayed vs eager", smoke.td_tail)
+    smoke.run("15g", "td step vs reference", smoke.td_tail)
     print(smoke.smi, flush=True)
     return 0
 
@@ -4253,7 +4270,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                              "iterations with and without the program's spans")
     parser.add_argument("--td-tail", action="store_true",
                         help="instead of all the phases, run phases 1, 2 and 15g (the TD "
-                             "step's tail replayed against the eager step)")
+                             "step against the reference step)")
     parser.add_argument("--ppo-sgd", action="store_true",
                         help="instead of all the phases, run phases 1 and 19f (PPO's SGD "
                              "step replayed against the eager step)")

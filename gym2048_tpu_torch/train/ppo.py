@@ -365,13 +365,6 @@ def ppo_loss_terms(logits: torch.Tensor, value: torch.Tensor, action: torch.Tens
     return policy_loss, value_loss, entropy, approx_kl, clip_frac
 
 
-def _kernel_flags() -> tuple:
-    """torch's settings that choose the kernels a CUDA graph captures."""
-    b = torch.backends
-    return (torch.are_deterministic_algorithms_enabled(), b.cudnn.deterministic,
-            b.cudnn.benchmark, b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
-
-
 # the update's metrics, in the order _sgd_step stacks them
 _AUX = ("loss", "policy_loss", "value_loss", "entropy", "approx_kl", "clip_frac")
 
@@ -412,7 +405,7 @@ class _SgdGraph:
                 tuple(t.data_ptr() for t in model.parameters()),
                 tuple(t.data_ptr() for t in model.buffers()),
                 tuple(s[k].data_ptr() for s in adam.values() for k in ("exp_avg", "exp_avg_sq")),
-                _kernel_flags())
+                graphs.kernel_flags())
 
     def _run(self, trainer: PPO) -> None:
         """One step on the buffers (what the graph holds)."""
@@ -480,7 +473,7 @@ class _RolloutGraph:
                 id(model),
                 tuple(t.data_ptr() for t in model.parameters()),
                 tuple(t.data_ptr() for t in model.buffers()),
-                _kernel_flags())
+                graphs.kernel_flags())
 
     def draw(self, generator: torch.Generator, u: torch.Tensor) -> None:
         """The whole batch's uniforms into ``u`` (:attr:`u_act` or :attr:`u_env`)."""

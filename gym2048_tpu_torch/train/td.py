@@ -29,13 +29,13 @@ scatter here.
 Randomness: one ``torch.Generator`` on the trainer's device, seeded from
 ``TDConfig.seed``, takes the place of the JAX key. It is carried in the
 train state under ``"generator"`` and advances as the state is trained.
-:meth:`TDTrainer._draws` draws each step's uniforms in one call, and the
-step body takes them as an argument, so the body can be fed the numbers
-JAX drew. The steps of a chunk are a Python loop with no host sync;
-:meth:`TDTrainer.learn` syncs once per logged chunk. On the card each
+Each step draws its uniforms in one call (:meth:`TDTrainer._draws`) into a
+buffer, so a test can feed the step the numbers JAX drew. The steps of a
+chunk are a Python loop with no host sync (:meth:`TDTrainer._scan_steps`);
+:meth:`TDTrainer.learn` syncs once per logged chunk. On every device each
 step's tail, everything after the greedy search but an update that writes
-the table, is one CUDA graph replay (:class:`_StepTail`): the same
-operations as the eager step, launched at once.
+the table, runs on the static buffers of a :class:`_StepTail`: one CUDA
+graph replay on the card, a plain call of the same code elsewhere.
 
 Data parallel (:meth:`TDTrainer.make_sharded_chunk`, ``learn(mesh=...)``,
 ``--sharded``): chunk-synchronous local learners over the ``data`` axis of
@@ -50,6 +50,7 @@ cpu`` on the CPU; data parallel over N ranks with ``torchrun --standalone
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -170,15 +171,16 @@ def _split_draws(u: torch.Tensor) -> dict:
 
 
 class _StepTail:
-    """A TD step after its greedy search, on static buffers: with delayed
-    TC the update (the TD error and the scatter-accumulate into the pending
-    sums), then the episode bookkeeping, the spawn, the fresh boards, the
-    carousel and the reset, the step's leaves written into :attr:`carry`
-    and its stats into row ``step`` of :attr:`stats`. On a CUDA device
-    each :meth:`replay` after the first :data:`graphs.WARMUP` (eager, on a
-    side stream, as real steps) launches one CUDA graph of it, captured at
-    the first (:class:`graphs.GraphedStep`); elsewhere a replay calls the
-    same code.
+    """A TD step after its greedy search, on static buffers, the tail of
+    every step that :meth:`TDTrainer._scan_steps` runs: with delayed TC the
+    update (the TD error and the scatter-accumulate into the pending sums),
+    then the episode bookkeeping, the spawn, the fresh boards, the carousel
+    and the reset, the step's leaves written into :attr:`carry` and its
+    stats into row ``step`` of :attr:`stats`. On a CUDA device each
+    :meth:`replay` after the first :data:`graphs.WARMUP` (eager, on a side
+    stream, as real steps) launches one CUDA graph of it, captured at the
+    first (:class:`graphs.GraphedStep`); elsewhere every replay is a plain
+    call of the same code.
 
     The buffers: :attr:`u`, the step's draw (:meth:`TDTrainer._draws`
     writes it); the inputs ``after``, ``r``, ``v_after``, ``alive`` that a
@@ -209,10 +211,9 @@ class _StepTail:
     @staticmethod
     def key_of(carry: dict, length: int) -> tuple:
         """What a tail is built for: the carry's device, envs and leaves,
-        the step count and the deterministic mode (read at capture)."""
+        the step count and torch's kernel flags (read at capture)."""
         return (carry["boards"].device, carry["boards"].shape[0], length,
-                tuple(sorted(_STEP_KEYS & carry.keys())),
-                torch.are_deterministic_algorithms_enabled())
+                tuple(sorted(_STEP_KEYS & carry.keys())), graphs.kernel_flags())
 
     def _run(self) -> None:
         """The tail once, on the buffers (what the graph holds)."""
@@ -242,13 +243,15 @@ class _StepTail:
         return self.carry
 
     def replay(self, after, r, v_after, alive) -> None:
-        """One step's tail on the greedy search's results."""
-        for buf, x in zip(self.inputs, (after, r, v_after, alive)):
-            buf.copy_(x)
-        if self.graphed.warming:
-            self.graphed.eager(self._run)
-        else:
-            self.graphed.replay()
+        """One step's tail on the greedy search's results, in the span
+        ``td.tail`` where the tail captures a graph (on the card)."""
+        with profiler.span("td.tail") if self.graphed.captures else contextlib.nullcontext():
+            for buf, x in zip(self.inputs, (after, r, v_after, alive)):
+                buf.copy_(x)
+            if self.graphed.warming:
+                self.graphed.eager(self._run)
+            else:
+                self.graphed.replay()
 
     def unload(self, state: dict) -> tuple[dict, tuple]:
         """The scan's result: ``state`` with copies of the step leaves in
@@ -282,7 +285,7 @@ class TDTrainer:
         self.device = torch.device(device)
         self.chunks = 0  # train_chunk calls: the unit id of their spans
         self._net = self._small = None
-        self._tail = None  # the _StepTail of _scan_replayed
+        self._tail = None  # the _StepTail of _scan_steps
         if cfg.arch == "small":
             if cfg.tc_every != 1 or cfg.carousel:
                 raise ValueError("tc_every/carousel are big-net staged-training features")
@@ -347,15 +350,14 @@ class TDTrainer:
                                               device=dev)
         return state
 
-    def _draws(self, generator: torch.Generator, n: int, out: torch.Tensor | None = None
-               ) -> dict:
-        """One step's uniforms for ``n`` envs, in one draw: the spawn's value
-        and position ``(n,)`` each, the fresh boards' ``(n, 4)``, and with
-        the carousel its record slot and its use, stage and slot draws.
-        ``out``, a ``(rows, n)`` buffer, takes the draw in place of a new
-        tensor (the same numbers)."""
-        rows = 10 if self.cfg.carousel else 6
-        return _split_draws(torch.rand((rows, n), generator=generator,
+    @staticmethod
+    def _draws(generator: torch.Generator, out: torch.Tensor) -> dict:
+        """One step's uniforms for ``n`` envs, in one draw into ``out``, a
+        ``(rows, n)`` buffer (10 rows with the carousel, else 6): the
+        spawn's value and position ``(n,)`` each, the fresh boards' ``(n,
+        4)``, and with the carousel its record slot and its use, stage and
+        slot draws."""
+        return _split_draws(torch.rand(out.shape, generator=generator,
                                        device=generator.device, out=out))
 
     def _update(self, alpha, defer_tc: bool):
@@ -435,26 +437,6 @@ class TDTrainer:
     def _values(self):
         return self._net if self._net is not None else self._small
 
-    def _chunk_body(self, alpha, defer_tc: bool = False):
-        """The step: ``body(carry, draws) -> (carry, (n_done, done_score,
-        highest))``, with ``draws`` as :meth:`_draws` returns them.
-
-        ``defer_tc``: scatter-accumulate the TC statistics into the carried
-        ``tc_ps`` / ``tc_pa`` / ``tc_pc`` buffers instead of applying the
-        table-sized combine (the inner step of delayed TC)."""
-        values = self._values()
-        update, restart = self._update(alpha, defer_tc), self._restart()
-
-        def body(carry: dict, draws: dict):
-            # the small net's "mxu" modes split the table once a step, as in JAX
-            value_fn = values.make_value_fn(carry["table"])
-            _, after, r, v_after, alive = _greedy_batch(value_fn, carry["boards"])
-            new = dict(carry)
-            update(carry, new, r, v_after, alive)
-            return new, restart(carry, new, draws, after, r, v_after, alive)
-
-        return body
-
     @staticmethod
     def _combine(carry: dict, alpha) -> None:
         """The delayed-TC combine of the pending sums into ``carry``'s
@@ -465,19 +447,6 @@ class TDTrainer:
                 *(carry[p] for p in _PENDING), alpha)
             for p in _PENDING:
                 carry[p].zero_()
-
-    def _scan_steps(self, carry: dict, alpha, length: int):
-        """``length`` steps, each with its draws from the carry's generator.
-        With ``cfg.tc_every > 1`` (delayed TC) the TC statistics accumulate
-        in table-sized pending buffers, and the combine runs at the end of
-        every window of ``tc_every`` steps. Returns a new carry (the given
-        one's generator, advanced) and the per-step stats stacked
-        ``(length,)``. On a CUDA device each step's tail is one CUDA graph
-        replay (:meth:`_scan_replayed`), elsewhere the steps run eagerly
-        (:meth:`_scan_eager`); both give the same numbers."""
-        if carry["boards"].is_cuda:
-            return self._scan_replayed(carry, alpha, length)
-        return self._scan_eager(carry, alpha, length)
 
     @property
     def _defer_tc(self) -> bool:
@@ -493,36 +462,20 @@ class TDTrainer:
             raise ValueError(f"{length} steps do not divide into windows of {k}")
         return k
 
-    def _scan_eager(self, carry: dict, alpha, length: int):
-        """:meth:`_scan_steps` step by step through :meth:`_chunk_body`,
-        the pending buffers of delayed TC made for this call alone."""
-        gen = carry["generator"]
-        n = carry["boards"].shape[0]
-        k, defer = self._windows(length), self._defer_tc
-        body = self._chunk_body(alpha, defer_tc=defer)
-        carry = dict(carry)
-        if defer:
-            carry.update((p, torch.zeros_like(carry["table"])) for p in _PENDING)
-        stats = []
-        for t in range(length):
-            carry, s = body(carry, self._draws(gen, n))
-            stats.append(s)
-            if defer and (t + 1) % k == 0:
-                self._combine(carry, alpha)
-        for p in _PENDING:
-            carry.pop(p, None)
-        return carry, tuple(torch.stack(s) for s in zip(*stats))
-
-    def _scan_replayed(self, carry: dict, alpha, length: int):
-        """:meth:`_scan_steps` with each step's tail on the static buffers
-        of a :class:`_StepTail`: the draw into its buffer and the greedy
-        search run eagerly (so do the update and its ``alpha`` without
-        delayed TC, where the step writes the table), then the tail, one
-        CUDA graph replay on the card (a plain call elsewhere). The combine
-        of delayed TC runs eagerly between the windows. The tail is built
-        at the first call and again when the shapes, the step count or the
-        deterministic mode change; the carry's leaves are copied into it at
-        the start and out of it at the end."""
+    def _scan_steps(self, carry: dict, alpha, length: int):
+        """``length`` steps, each with its draws from the carry's generator.
+        A step draws into the buffer of a :class:`_StepTail` and runs the
+        greedy search eagerly (so do the update and its ``alpha`` without
+        delayed TC, where the step writes the table), then the tail on the
+        tail's buffers: one CUDA graph replay on the card, a plain call
+        elsewhere. With ``cfg.tc_every > 1`` (delayed TC) the TC statistics
+        accumulate in the tail's pending sums, and the combine runs eagerly
+        at the end of every window of ``tc_every`` steps. The tail is built
+        at the first call and again when the shapes, the step count or
+        torch's kernel flags change; the carry's leaves are copied into it
+        at the start and out of it at the end. Returns a new carry (the
+        given one's generator, advanced) and the per-step stats stacked
+        ``(length,)``."""
         k, defer = self._windows(length), self._defer_tc
         key = _StepTail.key_of(carry, length)
         if self._tail is None or self._tail.key != key:
@@ -533,17 +486,15 @@ class TDTrainer:
         state = dict(carry)
         state.update(tail.load(carry))
         gen = carry["generator"]
-        n = carry["boards"].shape[0]
         values = self._values()
         update = None if defer else self._update(alpha, False)
         for t in range(length):
-            self._draws(gen, n, out=tail.u)
+            self._draws(gen, tail.u)
             value_fn = values.make_value_fn(state["table"])
             _, after, r, v_after, alive = _greedy_batch(value_fn, state["boards"])
             if update is not None:
                 update(state, state, r, v_after, alive)
-            with profiler.span("td.tail"):
-                tail.replay(after, r, v_after, alive)
+            tail.replay(after, r, v_after, alive)
             if defer and (t + 1) % k == 0:
                 self._combine(state, alpha)
         return tail.unload(state)

@@ -20,6 +20,14 @@ from gym2048_tpu_torch.utils import profiler
 WARMUP = 2  # eager steps of a holder before its capture
 
 
+def kernel_flags() -> tuple:
+    """torch's settings that choose the kernels a CUDA graph captures: a
+    holder's key holds them, so that a change of any rebuilds its graph."""
+    b = torch.backends
+    return (torch.are_deterministic_algorithms_enabled(), b.cudnn.deterministic,
+            b.cudnn.benchmark, b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+
+
 class GraphedStep:
     """``run(*args)``, a step on a holder's buffers, as one CUDA graph replay
     on ``device`` (see the module's docstring), each replay counted in the

@@ -36,7 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_td import assert_bits, jax_draws
+from test_torch_td import assert_bits, feed, jax_draws
 from torch.distributed.device_mesh import DeviceMesh
 
 from gym2048_tpu.parallel import make_mesh as jmake_mesh
@@ -92,8 +92,7 @@ def ranks_in_turn(trainer, states, alpha, draws=None):
     outs = []
     for r, (chunk, state) in enumerate(zip(chunks, states)):
         if draws is not None:
-            it = iter(draws[r])
-            trainer._draws = lambda gen, n, it=it: next(it)
+            feed(trainer, draws[r])
         outs.append(chunk.local(state, alpha))
     if draws is not None:
         del trainer._draws

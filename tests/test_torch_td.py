@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gym2048_tpu.models import ntuple as jnt
 from gym2048_tpu.models import ntuple_big as jnb
 from gym2048_tpu.train import td as jtd
@@ -307,6 +308,19 @@ def jax_draws(key, n, carousel):
     return key, {k: t(v) for k, v in d.items()}
 
 
+def packed(draws: dict) -> torch.Tensor:
+    """JAX's draws in the ``(rows, n)`` layout of ``TDTrainer._draws``."""
+    rows = [draws["spawn_val"], draws["spawn_pos"], *draws["fresh"].T]
+    rows += [draws[k] for k in ("car_slot", "car_use", "car_stage", "car_pick") if k in draws]
+    return torch.stack(rows)
+
+
+def feed(trainer, draws: list[dict]) -> None:
+    """Make ``trainer`` draw ``draws`` in turn, into the buffer it draws into."""
+    it = iter(draws)
+    trainer._draws = lambda gen, out: ttd._split_draws(out.copy_(packed(next(it))))
+
+
 def test_carousel_units_match_jax():
     """Mirrors tests/test_td.py's carousel unit test, on the same draws."""
     key = jax.random.PRNGKey(0)
@@ -375,11 +389,14 @@ MODES = {
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_chunk_body_step_matches_jax(mode):
-    """One step body (for ``tc_every``, a window of two steps through
-    ``_scan_steps``) from one carry, on the uniforms JAX drew: every carry
-    leaf and stat equal bit for bit. (After a combine the table holds
-    quotients of counts, and value sums are no longer exact in any order,
-    so later steps are compared within the port below.)"""
+    """The reference step (``chip_smoke.reference_td_steps``, the step
+    written out on fresh tensors, which the port's ``_scan_steps`` is held
+    to) against JAX's step body: one step (for ``tc_every``, a window of
+    two steps through JAX's ``_scan_steps``) from one carry, on the
+    uniforms JAX drew, every carry leaf and stat equal bit for bit. (After
+    a combine the table holds quotients of counts, and value sums are no
+    longer exact in any order, so later steps are compared within the port
+    below.)"""
     kw = {**BASE, **MODES[mode]}
     n = 24
     jtr = jtd.TDTrainer(jtd.TDConfig(n_envs=n, **kw))
@@ -398,16 +415,13 @@ def test_chunk_body_step_matches_jax(mode):
             want, wstats = jtr._scan_steps(jcarry, jnp.float32(alpha), steps)
         else:
             want, wstats = jtr._chunk_body(jnp.float32(alpha))(jcarry, None)
+            wstats = tuple(np.asarray(w)[None] for w in wstats)
     tcarry = interop.train_state_from_numpy(carry, "cpu")
-    a = torch.tensor(alpha, dtype=torch.float32)
-    if mode == "tc_every_2":
-        tcarry["generator"] = torch.Generator()
-        it = iter(draws)
-        ttr._draws = lambda gen, n_: next(it)
-        got, gstats = ttr._scan_steps(tcarry, a, steps)
-        del got["generator"]
-    else:
-        got, gstats = ttr._chunk_body(a)(tcarry, draws[0])
+    tcarry["generator"] = torch.Generator()
+    feed(ttr, draws)
+    got, gstats = chip_smoke.reference_td_steps(
+        ttr, tcarry, torch.tensor(alpha, dtype=torch.float32), steps)
+    del got["generator"]
     assert set(got) == set(want) - {"key"}
     assert_bits(want["key"], key)  # the JAX key advanced as the draws assumed
     for k in got:
@@ -638,9 +652,10 @@ SMALL_MODES = {"td": dict(tc=False), "tc": dict(tc=True, alpha=1.0, alpha_final=
 def test_small_chunk_matches_jax(mode):
     """A chunk of 8 steps of the small net from JAX's init_state, carried
     across by interop.train_state_from_numpy and fed the uniforms JAX drew
-    (see the module docstring): the first two steps leave JAX's state in
-    every leaf; each later step of JAX's chunk, re-run from JAX's carry
-    with exact-arithmetic floats, leaves JAX's next carry in every leaf."""
+    (see the module docstring), the port's ``_scan_steps`` one step at a
+    time: the first two steps leave JAX's state in every leaf; each later
+    step of JAX's chunk, re-run from JAX's carry with exact-arithmetic
+    floats, leaves JAX's next carry in every leaf."""
     n, steps = 32, 8
     kw = {**dict(n_envs=n, init_value=0.0, alpha=0.5, alpha_final=0.5), **SMALL_MODES[mode]}
     jtr = jtd.TDTrainer(jtd.TDConfig(**kw))
@@ -651,16 +666,23 @@ def test_small_chunk_matches_jax(mode):
     tcarry = interop.train_state_from_numpy({k: np.asarray(v) for k, v in jstate.items()}, "cpu")
     assert "generator" not in tcarry
     jbody = jtr._chunk_body(jnp.float32(alpha))
-    tbody = ttr._chunk_body(a)
+
+    def tstep(carry: dict, draws: dict):
+        """One step of the port's ``_scan_steps`` on ``draws``."""
+        feed(ttr, [draws])
+        got, stats = ttr._scan_steps(dict(carry, generator=torch.Generator()), a, 1)
+        del got["generator"]
+        return got, stats
+
     jc, key = dict(jstate), jstate["key"]
     with jax.disable_jit():
         for step in range(2):
             key, draws = jax_draws(key, n, False)
             jc, wstats = jbody(jc, None)
-            tcarry, gstats = tbody(tcarry, draws)
+            tcarry, gstats = tstep(tcarry, draws)
             assert_carries_equal(tcarry, jc, f"step {step}")
             for g, w in zip(gstats, wstats):
-                assert_bits(g, w)
+                assert_bits(g, np.asarray(w)[None])
     assert (tcarry["table"] != 0).any()  # the second step's update landed
     jstep = jax.jit(jbody)
     for step in range(2, steps):
@@ -668,7 +690,7 @@ def test_small_chunk_matches_jax(mode):
         _, draws = jax_draws(jnp.asarray(carry["key"]), n, False)
         with jax.disable_jit():
             want, _ = jbody({k: jnp.asarray(v) for k, v in carry.items()}, None)
-        got, _ = tbody(interop.train_state_from_numpy(carry, "cpu"), draws)
+        got, _ = tstep(interop.train_state_from_numpy(carry, "cpu"), draws)
         assert_carries_equal(got, want, f"step {step}")
         jc, _ = jstep(jc, None)  # JAX's own chunk goes on
     assert (~np.asarray(want["prev_valid"])).sum() < n

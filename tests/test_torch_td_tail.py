@@ -1,14 +1,16 @@
-"""The TD step's tail on static buffers (``TDTrainer._scan_replayed`` and
+"""The TD step's tail on static buffers (``TDTrainer._scan_steps`` and
 ``train/td.py::_StepTail``): everything of a step after its greedy search,
 which on a CUDA device is one CUDA graph replay. Off the card a replay is a
 plain call of the same code on the same buffers, so these tests hold the
 buffers' data flow on the CPU: bit for bit against the JAX step on JAX's
-draws, and against the eager scan over whole chunks (delayed TC and not,
+draws, and against the step written out on fresh tensors
+(``chip_smoke.reference_td_steps``) over whole chunks (delayed TC and not,
 the carousel on and off, both nets), with the returned states untouched by
 later chunks. The capture itself runs only on the card (``chip_smoke.py``
 phase 15g)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +19,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import chip_smoke
 from gym2048_tpu.train import td as jtd
 from gym2048_tpu_torch import interop
 from gym2048_tpu_torch.train import td as ttd
 from gym2048_tpu_torch.utils import profiler
-from test_torch_td import BASE, MODES, assert_bits, boards, dead_boards, jax_draws, step_carry
+from test_torch_td import (BASE, MODES, assert_bits, boards, dead_boards, feed, jax_draws,
+                           step_carry)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -31,24 +35,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def packed(draws: dict) -> torch.Tensor:
-    """JAX's draws in the ``(rows, n)`` layout of ``TDTrainer._draws``."""
-    rows = [draws["spawn_val"], draws["spawn_pos"], *draws["fresh"].T]
-    rows += [draws[k] for k in ("car_slot", "car_use", "car_stage", "car_pick") if k in draws]
-    return torch.stack(rows)
-
-
-def feed(trainer, draws: list[dict]) -> None:
-    """Make ``trainer`` draw ``draws`` in turn, into the tail's buffer."""
-    it = iter(draws)
-
-    def fake(gen, n, out=None):
-        u = packed(next(it))
-        return ttd._split_draws(u if out is None else out.copy_(u))
-
-    trainer._draws = fake
 
 
 TAIL_MODES = {**MODES, "carousel_tc_every_2": dict(tc=True, tc_every=2, chunk_steps=2,
@@ -82,7 +68,7 @@ def test_replayed_step_matches_jax(mode):
     tcarry = interop.train_state_from_numpy(carry, "cpu")
     tcarry["generator"] = torch.Generator()
     feed(ttr, draws)
-    got, gstats = ttr._scan_replayed(tcarry, torch.tensor(alpha, dtype=torch.float32), steps)
+    got, gstats = ttr._scan_steps(tcarry, torch.tensor(alpha, dtype=torch.float32), steps)
     del got["generator"]
     assert set(got) == set(want) - {"key"}
     for k in got:
@@ -135,13 +121,13 @@ def chunks(trainer, state: dict, scan, count: int) -> list[tuple[dict, tuple, di
 
 @pytest.mark.parametrize("case", list(CHUNK_CASES))
 def test_replayed_chunks_equal_eager_chunks(case):
-    """Three chunks through the static tail and through the eager body:
-    every leaf, the generator and every stat equal bit for bit; a returned
-    state is not changed by the chunks after it."""
+    """Three chunks through the static tail and through the reference step
+    on fresh tensors: every leaf, the generator and every stat equal bit
+    for bit; a returned state is not changed by the chunks after it."""
     tr = ttd.TDTrainer(ttd.TDConfig(n_envs=16, chunk_steps=8, **CHUNK_CASES[case]), "cpu")
     state = crowded_state(tr, 5)
-    eager = chunks(tr, state, tr._scan_eager, 3)
-    replayed = chunks(tr, state, tr._scan_replayed, 3)
+    eager = chunks(tr, state, functools.partial(chip_smoke.reference_td_steps, tr), 3)
+    replayed = chunks(tr, state, tr._scan_steps, 3)
     for (a, sa, _), (b, sb, snap) in zip(eager, replayed):
         assert set(a) == set(b) == set(state)
         for k in a:
@@ -160,12 +146,13 @@ def test_replayed_chunks_equal_eager_chunks(case):
 
 def test_train_chunk_and_learn_through_the_tail(monkeypatch):
     """``train_chunk`` (and so ``learn`` and the one-rank sharded chunk)
-    with the static tail in place of the eager scan: the same states and
-    metrics."""
+    through the static tail, against ``learn`` with the reference step in
+    place of ``_scan_steps``: the same states and metrics."""
     cfg = ttd.TDConfig(n_envs=16, chunk_steps=4, total_steps=16 * 4 * 3,
                        **CHUNK_CASES["deferred_carousel"])
     want_tr, got_tr = ttd.TDTrainer(cfg, "cpu"), ttd.TDTrainer(cfg, "cpu")
-    monkeypatch.setattr(got_tr, "_scan_steps", got_tr._scan_replayed)
+    monkeypatch.setattr(want_tr, "_scan_steps",
+                        functools.partial(chip_smoke.reference_td_steps, want_tr))
     want, wh = want_tr.learn(log_fn=None, log_every=1)
     got, gh = got_tr.learn(log_fn=None, log_every=1)
     assert got_tr._tail is not None and want_tr._tail is None
@@ -179,9 +166,11 @@ def test_train_chunk_and_learn_through_the_tail(monkeypatch):
 
 
 def test_tail_replays_read_zero_off_the_card():
-    """Off the card ``train_chunk`` runs eagerly: its spans are the eager
-    step's, and the replay counter never counts; the static tail run on
-    the CPU records its ``td.tail`` spans and counts no replay either."""
+    """Off the card the tail makes plain calls: ``train_chunk``'s spans
+    are the step's own (``td.update`` and ``td.restart`` inside the tail's
+    calls, no ``td.tail``, which opens only around a graph's replay), and
+    the replay counter never counts, in ``train_chunk`` or in a bare
+    ``_scan_steps``."""
     tr = ttd.TDTrainer(ttd.TDConfig(n_envs=16, chunk_steps=4,
                                     **CHUNK_CASES["deferred_carousel"]), "cpu")
     profiler.clear()
@@ -193,12 +182,13 @@ def test_tail_replays_read_zero_off_the_card():
         assert s["spans"]["td.update"]["calls"] == s["spans"]["td.restart"]["calls"] == 4
         profiler.clear()
         with profile(activities=[ProfilerActivity.CPU]):
-            tr._scan_replayed(state, torch.tensor(1.0), 4)
+            tr._scan_steps(state, torch.tensor(1.0), 4)
         s = profiler.summary()
     finally:
         profiler.clear()
-    assert s["counters"].get("td.tail_replays", 0) == 0
-    assert s["spans"]["td.tail"]["calls"] == 4
+    assert not tr._tail.graphed.captures
+    assert s["counters"].get("td.tail_replays", 0) == 0 and "td.tail" not in s["spans"]
+    assert s["spans"]["td.update"]["calls"] == s["spans"]["td.restart"]["calls"] == 4
 
 
 def test_the_tail_is_built_again_for_new_shapes_steps_or_mode():
@@ -206,31 +196,40 @@ def test_the_tail_is_built_again_for_new_shapes_steps_or_mode():
                                     **CHUNK_CASES["deferred_carousel"]), "cpu")
     state = tr.init_state()
     alpha = torch.tensor(1.0)
-    state, _ = tr._scan_replayed(state, alpha, 4)
+    state, _ = tr._scan_steps(state, alpha, 4)
     first = tr._tail
-    state, _ = tr._scan_replayed(state, alpha, 4)
+    state, _ = tr._scan_steps(state, alpha, 4)
     assert tr._tail is first
-    state, stats = tr._scan_replayed(state, alpha, 2)
+    state, stats = tr._scan_steps(state, alpha, 2)
     assert tr._tail is not first and stats[0].shape == (2,)
     second = tr._tail
     torch.use_deterministic_algorithms(True)
     try:
-        tr._scan_replayed(state, alpha, 2)
+        tr._scan_steps(state, alpha, 2)
     finally:
         torch.use_deterministic_algorithms(False)
     assert tr._tail is not second
+    third = tr._tail
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = not tf32
+    try:
+        tr._scan_steps(state, alpha, 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert tr._tail is not third
     half = {k: (v[:8] if k in ttd._BATCH_KEYS else v) for k, v in state.items()}
-    tr._scan_replayed(half, alpha, 2)
+    tr._scan_steps(half, alpha, 2)
     assert tr._tail.inputs[1].shape == (8,)
 
 
 def test_a_scan_cut_short_leaves_no_pending_sums(monkeypatch):
     """A scan that raises between combines leaves sums in the tail's
-    pending buffers; the next scan starts from zero sums all the same."""
+    pending buffers; the next scan starts from zero sums all the same, as a
+    fresh trainer's scan does."""
     cfg = ttd.TDConfig(n_envs=16, chunk_steps=4, **CHUNK_CASES["deferred_carousel"])
     tr, clean = ttd.TDTrainer(cfg, "cpu"), ttd.TDTrainer(cfg, "cpu")
     alpha = torch.tensor(1.0)
-    state, _ = tr._scan_replayed(crowded_state(tr, 9), alpha, 4)  # prev_valid set
+    state, _ = tr._scan_steps(crowded_state(tr, 9), alpha, 4)  # prev_valid set
     calls = []
     real = ttd._greedy_batch
 
@@ -242,12 +241,12 @@ def test_a_scan_cut_short_leaves_no_pending_sums(monkeypatch):
 
     monkeypatch.setattr(ttd, "_greedy_batch", cut)
     with pytest.raises(KeyboardInterrupt):
-        tr._scan_replayed(dict(state, generator=torch.Generator().manual_seed(2)), alpha, 4)
+        tr._scan_steps(dict(state, generator=torch.Generator().manual_seed(2)), alpha, 4)
     assert any(bool(tr._tail.carry[p].any()) for p in ttd._PENDING)
     monkeypatch.setattr(ttd, "_greedy_batch", real)
-    got, gs = tr._scan_replayed(dict(state, generator=torch.Generator().manual_seed(3)),
+    got, gs = tr._scan_steps(dict(state, generator=torch.Generator().manual_seed(3)),
                                 alpha, 4)
-    want, ws = clean._scan_eager(dict(state, generator=torch.Generator().manual_seed(3)),
+    want, ws = clean._scan_steps(dict(state, generator=torch.Generator().manual_seed(3)),
                                  alpha, 4)
     for k in want:
         if k != "generator":
