@@ -173,6 +173,9 @@ KERNELS = {
     "gather_values": ("gym2048_tpu/models/pallas_table.py:101", GATHER_SOURCE,
                       "gather4_kernel"),
 }
+# the libraries whose kernels' fewest SASS instructions _sass counts (one loop
+# at most a kernel); the BatchNorm kernels, bounded by bytes, have several
+SASS_COUNTED_LIBRARIES = ("fused_step", "table_gather")
 # Threads per block of the fused library's kernels, as their launchers in
 # fused_step.cu set them (kStepThreads, kRolloutThreads, kThreads).
 BLOCK_THREADS = {"fused_move": 128, "fused_step_uniform": 128, "fused_rollout": 128,
@@ -186,7 +189,8 @@ PATHS = {
     "agent": ("gather_values",),
     "td": ("gather_values",),
     "td small": ("gather_values",),
-    "ppo": (),  # the CNN, PPO's env and the optimiser: plain PyTorch, no kernel of ours
+    # the CNN (its BatchNorm layers the fused kernels' calls), PPO's env and the optimiser
+    "ppo": ("batch_norm_forward", "batch_norm_backward"),
     "shell": (),  # the CLIs (phase 20): the same device code as "ppo", and the host
     "td dp": ("gather_values",),  # learn(mesh=...) on one rank over NCCL (phase 21a)
     # the top-level entry points (phases 23-25): the port's bench as a subprocess
@@ -317,6 +321,27 @@ PPO_SGD_ITERATIONS, PPO_SGD_ROUNDS = 2, 3
 PPO_SGD_CHECK = dict(PPO_PRODUCTION, total_timesteps=PPO_SGD_ITERATIONS * 4096 * 128,
                      anneal_lr=True, seed=SEED)
 PPO_SGD_LOSS_TOL, PPO_SGD_CHANGE_TOL = 1e-6, 1e-5
+# Phase 19h, the fused BatchNorm layer (csrc/batch_norm.cu): (boards, C,
+# dtype, train, residual) of each case, at 4 x 4 rows a board: the SGD step's
+# layers (16,384 boards bf16, with and without the residual), the rollout's
+# eval layers (4,096), the f32 learner's (batch 256) and the BC model's policy
+# BatchNorm (C = 2, one value a thread). Each case holds the kernels' output,
+# running statistics and gradients against float64 (bn_want_forward,
+# bn_want_backward) within BN_F32_TOL of the largest magnitude in float32 and
+# one bfloat16 rounding (2^-8 of each value) plus 2^-12 of the largest
+# magnitude in bfloat16, and times the kernels and the plain version (torch's
+# native_batch_norm, the add and relu: the library yardstick) in CUDA graphs
+# of BN_REPS calls. Then one SGD step of the cell's config, graphed, with
+# torch's BatchNorm (the plain version) and with the fused layer: each step's
+# device time in turns and its kernels by name.
+BN_CASES = ((16384, 64, torch.bfloat16, True, False), (16384, 64, torch.bfloat16, True, True),
+            (4096, 64, torch.bfloat16, False, False), (4096, 64, torch.bfloat16, False, True),
+            (256, 64, torch.float32, True, True), (256, 64, torch.float32, False, True),
+            (16384, 2, torch.bfloat16, True, False), (256, 2, torch.float32, True, False))
+BN_REPS = 20
+BN_F32_TOL = 1e-5
+BN_SGD_ROUNDS = 6
+BN_OUT = os.path.join("build", "bn_kernels.json")
 # Phase 19g, PPO's rollout step as a CUDA graph replay against the eager step
 # written out op by op (reference_rollout): two successive rollouts of the
 # production shape from one seed (no update between them) in f32 and bf16 at
@@ -396,7 +421,7 @@ BENCH_TIMEOUT = 480        # seconds, start-up included
 BENCH_RUNNER = """\
 import json, runpy, sys
 from gym2048_tpu_torch.core import fused_step
-from gym2048_tpu_torch.models import table_gather
+from gym2048_tpu_torch.models import batch_norm, table_gather
 path = sys.argv[1]
 sys.argv = ["gym2048_tpu_torch.bench"]
 try:
@@ -405,7 +430,7 @@ try:
 except SystemExit as e:
     code = e.code
 with open(path, "w") as f:
-    json.dump({**fused_step.LAUNCHES, **table_gather.LAUNCHES}, f)
+    json.dump({**fused_step.LAUNCHES, **table_gather.LAUNCHES, **batch_norm.LAUNCHES}, f)
 sys.exit(code)
 """
 ENTRY_RANKS = 2
@@ -563,16 +588,18 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def resource_usage(text: str) -> dict[str, dict[str, int]]:
+def resource_usage(text: str, short: bool = True) -> dict[str, dict[str, int]]:
     """Kernel -> its fields (``REG``, ``STACK``, ``LOCAL``, ...) in the
     ``cuobjdump -res-usage`` listing of a built library: the registers and
-    stack frame ptxas gave each kernel that is launched."""
+    stack frame ptxas gave each kernel that is launched; by its short name
+    (``_sass.short_name``), or with ``short`` False by its mangled name,
+    which tells a template's instances apart."""
     from gym2048_tpu_torch._sass import short_name
 
     usage, current = {}, None
     for line in text.splitlines():
         if m := re.match(r"\s*Function (\S+?):?\s*$", line):
-            current = short_name(m.group(1))
+            current = short_name(m.group(1)) if short else m.group(1)
         elif current and (fields := re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", line)):
             usage[current], current = {k: int(v) for k, v in fields}, None
     return usage
@@ -748,6 +775,53 @@ def checkpoint_diffs(a, b) -> list[str]:
 
     walk(_state_to_host(a), _state_to_host(b), "state")
     return bad
+
+
+def bn_want_forward(x, w, b, rm, rv, residual, train: bool, momentum: float = 0.01,
+                    eps: float = 1e-5):
+    """The fused BatchNorm layer in float64 -> ``(y, running mean, running
+    variance)`` after the call: train mode by the batch's mean and biased
+    variance, which the running statistics move towards by ``momentum``."""
+    x64 = x.double()
+    if train:
+        var, mean = torch.var_mean(x64, dim=(0, 2, 3), correction=0)
+        rm = rm.double() + momentum * (mean - rm.double())
+        rv = rv.double() + momentum * (var - rv.double())
+    else:
+        mean, var = rm.double(), rv.double()
+    z = ((x64 - mean[:, None, None]) / (var[:, None, None] + eps).sqrt() * w.double()[:, None, None]
+         + b.double()[:, None, None])
+    if residual is not None:
+        z = z + residual.double()
+    return z.clamp_min(0), rm, rv
+
+
+def bn_want_backward(x, y, dy, w, mean, var, train: bool, eps: float = 1e-5):
+    """The fused BatchNorm layer's gradients in float64 through the ReLU's
+    mask of the given output ``y`` -> ``(dx, dweight, dbias, dresidual)``;
+    ``mean`` and ``var`` those the output was normalised with."""
+    g = dy.double() * (y.double() > 0)
+    invstd = 1 / (var.double() + eps).sqrt()
+    xhat = (x.double() - mean.double()[:, None, None]) * invstd[:, None, None]
+    n = x.numel() // x.shape[1]
+    dbias, dweight = g.sum((0, 2, 3)), (g * xhat).sum((0, 2, 3))
+    k = (w.double() * invstd)[:, None, None]
+    if train:
+        dx = k * (g - dbias[:, None, None] / n - xhat * dweight[:, None, None] / n)
+    else:
+        dx = k * g
+    return dx, dweight, dbias, g
+
+
+def bn_excess(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype) -> float:
+    """The largest error of ``got`` over its limit against the float64
+    ``want`` (<= 1 within): BN_F32_TOL of the largest magnitude in float32,
+    2^-8 of each value plus 2^-12 of the largest magnitude in bfloat16."""
+    got, want = got.double(), want.double()
+    scale = max(1.0, want.abs().max().item())
+    limit = (torch.full_like(want, BN_F32_TOL * scale) if dtype == torch.float32
+             else 2.0 ** -8 * want.abs() + 2.0 ** -12 * scale)
+    return ((got - want).abs() / limit).max().item()
 
 
 def short_kernel_name(key: str) -> str:
@@ -1284,11 +1358,11 @@ class Smoke:
 
     def __init__(self):
         from gym2048_tpu_torch.core import fused_step
-        from gym2048_tpu_torch.models import table_gather
+        from gym2048_tpu_torch.models import batch_norm, table_gather
 
         self.fs = fused_step
         self.tg = table_gather
-        self.counters = (fused_step.LAUNCHES, table_gather.LAUNCHES)
+        self.counters = (fused_step.LAUNCHES, table_gather.LAUNCHES, batch_norm.LAUNCHES)
         self.dev = torch.device("cuda")
         self.kernels = {name: {"name": name, "route": "cuda", "source": source,
                                "replaces": where, "library_ms": None}
@@ -1349,7 +1423,8 @@ class Smoke:
         self.issue = {}
         for name, path in paths.items():
             _build.library(name)
-            self.issue.update(_sass.issue_counts(_sass.dump(path)))
+            if name in SASS_COUNTED_LIBRARIES:
+                self.issue.update(_sass.issue_counts(_sass.dump(path)))
         self.usage = {}
         for path in paths.values():
             listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(path)],
@@ -3729,6 +3804,151 @@ class Smoke:
                 f"{one}; {ENTRY_RANKS} gloo ranks sharing the card, {wall:.2f} s with "
                 f"start-up: {many}; launches {self.path_launches['scaling']}")
 
+    # 19h
+    def bn_kernels(self) -> str:
+        """The fused BatchNorm layer's kernels at BN_CASES against float64
+        and timed beside the plain version and the bound by bytes, then one
+        graphed SGD step of the cell's config with each (:meth:`bn_sgd`).
+        The whole record goes to BN_OUT."""
+        from gym2048_tpu_torch.models import batch_norm as bn
+
+        from gym2048_tpu_torch import _build, _sass
+
+        cases = [self.bn_case(*case) for case in BN_CASES]
+        library = _build.build(*_build.LIBRARIES["batch_norm"])
+        listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(library)],
+                                 capture_output=True, text=True, check=True).stdout
+        usage = resource_usage(listing, short=False)
+        record = {"device": torch.cuda.get_device_name(0), "smi": self.smi, "cases": cases,
+                  "registers": usage, "sgd": self.bn_sgd(), "launches": dict(bn.LAUNCHES)}
+        os.makedirs(os.path.dirname(BN_OUT), exist_ok=True)
+        with open(BN_OUT, "w") as f:
+            json.dump(record, f, indent=1)
+        sgd = record["sgd"]
+        return ("; ".join(
+            f"{c['case']}: excess {max(c['excess'].values()):.3f}, fwd {c['ms']['forward']:.4f} "
+            f"ms (plain {c['plain_ms']['forward']:.4f}, bound {c['bound_ms']['forward']:.4f}), "
+            f"bwd {c['ms']['backward']:.4f} (plain {c['plain_ms']['backward']:.4f}, bound "
+            f"{c['bound_ms']['backward']:.4f})" for c in cases)
+            + f"; SGD step device ms (median of {BN_SGD_ROUNDS}) torch's BatchNorm "
+            f"{sgd['torch']['step_ms']:.4f}, fused {sgd['fused']['step_ms']:.4f}; registers "
+            + ", ".join(f"{short_kernel_name(k)[:40]} {v['REG']}" for k, v in usage.items())
+            + f"; record in {BN_OUT}")
+
+    def bn_case(self, boards: int, c: int, dt: torch.dtype, train: bool, residual: bool) -> dict:
+        """One case of BN_CASES: errors against float64 of the kernels and of
+        the plain version, and device ms of each, forward and backward."""
+        from gym2048_tpu_torch.models import batch_norm as bn
+
+        g = torch.Generator(device=self.dev).manual_seed(SEED + boards + c)
+
+        def act():
+            x = torch.randn(boards, 4, 4, c, generator=g, device=self.dev) * 2 + 0.5
+            return x.to(dt).permute(0, 3, 1, 2)
+
+        x, dy = act(), act()
+        res = act() if residual else None
+        w = torch.rand(c, generator=g, device=self.dev) + 0.5
+        b = torch.rand(c, generator=g, device=self.dev) - 0.5
+        rm = torch.randn(c, generator=g, device=self.dev)
+        rv = torch.rand(c, generator=g, device=self.dev) + 0.5
+        name = (f"{'train' if train else 'eval'} {boards} x {c} {str(dt)[6:]}"
+                + (" + residual" if residual else ""))
+        want_y, want_rm, want_rv = bn_want_forward(x, w, b, rm, rv, res, train)
+        if train:
+            var, mean = torch.var_mean(x.double(), dim=(0, 2, 3), correction=0)
+        else:
+            mean, var = rm, rv
+        out = {"case": name, "excess": {}, "plain_err": {}, "ms": {}, "plain_ms": {}}
+        for fn, key in ((bn.batch_norm_relu, "excess"),
+                        (bn.batch_norm_relu_reference, "plain_err")):
+            xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+            rs = res.clone().requires_grad_() if residual else None
+            rms, rvs = rm.clone(), rv.clone()
+            y = fn(xs, ws, bs, rms, rvs, rs, train)
+            y.backward(dy)
+            want_dx, want_dw, want_db, want_dres = bn_want_backward(x, y.detach(), dy, w, mean,
+                                                                    var, train)
+            pairs = {"y": (y.detach(), want_y, dt), "dx": (xs.grad, want_dx, dt),
+                     "dweight": (ws.grad, want_dw, torch.float32),
+                     "dbias": (bs.grad, want_db, torch.float32),
+                     "running_mean": (rms, want_rm, torch.float32),
+                     "running_var": (rvs, want_rv, torch.float32)}
+            if residual:
+                pairs["dresidual"] = (rs.grad, want_dres, dt)
+            for k, (got, want, kind) in pairs.items():
+                if key == "excess":
+                    out[key][k] = bn_excess(got, want, kind)
+                else:  # the plain version's error over the largest magnitude
+                    out[key][k] = ((got.double() - want).abs().max()
+                                   / max(1.0, want.abs().max().item())).item()
+        check(max(out["excess"].values()) <= 1.0, f"{name}: kernels off float64: {out}")
+        act_bytes = x.numel() * x.element_size()  # one activation
+        # each input and output once: x, the residual and y forward; dy, y, x,
+        # dx and the residual's gradient backward; and forward with x read twice
+        nbytes = {"forward": act_bytes * (3 if residual else 2),
+                  "backward": act_bytes * (5 if residual else 4)}
+        nbytes["forward_two_reads"] = nbytes["forward"] + act_bytes * train
+        out["bound_ms"] = {k: v / MEM_BYTES_PER_S * 1e3 for k, v in nbytes.items()}
+        for fn, key in ((bn._kernels, "ms"), (bn.batch_norm_relu_reference, "plain_ms")):
+            xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+            rs = res.clone().requires_grad_() if residual else None
+            rms, rvs = rm.clone(), rv.clone()
+            inputs = [xs, ws, bs] + ([rs] if residual else [])
+
+            def forward(fn=fn, xs=xs, ws=ws, bs=bs, rs=rs, rms=rms, rvs=rvs):
+                with torch.no_grad():
+                    return fn(xs, ws, bs, rms, rvs, rs, train, 0.01, 1e-5)
+
+            def both(fn=fn, xs=xs, ws=ws, bs=bs, rs=rs, rms=rms, rvs=rvs, inputs=inputs):
+                return torch.autograd.grad(fn(xs, ws, bs, rms, rvs, rs, train, 0.01, 1e-5),
+                                           inputs, dy)
+
+            fwd = graph_ms(forward, BN_REPS)
+            out[key]["forward"] = fwd
+            out[key]["backward"] = graph_ms(both, BN_REPS) - fwd
+        return out
+
+    def bn_sgd(self) -> dict:
+        """One SGD step of the cell's config (bf16, production shape) as its
+        CUDA graph, with torch's BatchNorm (the plain version on the card,
+        as before the fused layer) and with the fused layer: each step's
+        device ms in turns (median of BN_SGD_ROUNDS replays of each) and the
+        kernels of one replay by name (device us)."""
+        from gym2048_tpu_torch.models import batch_norm as bn
+        from gym2048_tpu_torch.models import resnet
+        from gym2048_tpu_torch.train import ppo
+        from torch.profiler import ProfilerActivity, profile
+
+        graphs_of, out = {}, {}
+        for name in ("torch", "fused"):
+            layer = bn.batch_norm_relu_reference if name == "torch" else bn.batch_norm_relu
+            saved, resnet.batch_norm_relu = resnet.batch_norm_relu, layer
+            try:
+                tr = ppo.PPO(ppo.PPOConfig(**PPO_PRODUCTION, compute_dtype=torch.bfloat16),
+                             device=self.dev)
+                state, _ = tr.train_iteration(tr.init_state())
+            finally:
+                resnet.batch_norm_relu = saved
+            graph = tr._sgd_graph.graphed.graph
+            check(graph is not None, f"{name}: no SGD graph was captured")
+            graphs_of[name] = (tr, state, graph)
+            graph.replay()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            ops = sorted(device_ops(prof), key=lambda e: -e.self_device_time_total)
+            out[name] = {"kernels": [[short_kernel_name(e.key), round(e.self_device_time_total, 3),
+                                      e.count] for e in ops],
+                         "busy_us": sum(e.self_device_time_total for e in ops), "ms": []}
+        for k in range(BN_SGD_ROUNDS):
+            for name in (("torch", "fused") if k % 2 == 0 else ("fused", "torch")):
+                out[name]["ms"].append(replay_ms(graphs_of[name][2], 1))
+        for name in out:
+            out[name]["step_ms"] = float(np.median(out[name]["ms"]))
+        return out
+
     # 16
     def launch_counters(self) -> str:
         self.zero_launches()
@@ -3905,6 +4125,7 @@ def main() -> int:
     smoke.run("19b", "ppo throughput", smoke.ppo_throughput)
     smoke.run("19f", "ppo sgd graphed vs eager", smoke.ppo_sgd)
     smoke.run("19g", "ppo rollout graphed vs eager", smoke.ppo_rollout)
+    smoke.run("19h", "batch_norm kernels", smoke.bn_kernels)
     smoke.run("19c", "ppo learning", smoke.ppo_learning)
     smoke.run("19d", "bc", smoke.bc_epoch)
     smoke.run("19e", "ppo evaluation", smoke.ppo_evaluation)
@@ -3961,6 +4182,16 @@ def ppo_rollout_only() -> int:
     smoke = Smoke()
     smoke.run("1", "device", smoke.device)
     smoke.run("19g", "ppo rollout graphed vs eager", smoke.ppo_rollout)
+    print(smoke.smi, flush=True)
+    return 0
+
+
+def batch_norm_only() -> int:
+    """``--batch-norm``: the device, the build and phase 19h alone."""
+    smoke = Smoke()
+    smoke.run("1", "device", smoke.device)
+    smoke.run("2", "build", smoke.build)
+    smoke.run("19h", "batch_norm kernels", smoke.bn_kernels)
     print(smoke.smi, flush=True)
     return 0
 
@@ -4277,6 +4508,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     parser.add_argument("--ppo-rollout", action="store_true",
                         help="instead of all the phases, run phases 1 and 19g (PPO's rollout "
                              "step replayed against the eager step)")
+    parser.add_argument("--batch-norm", action="store_true",
+                        help="instead of all the phases, run phases 1, 2 and 19h (the fused "
+                             "BatchNorm kernels against float64, timed, and in the SGD step)")
     parser.add_argument("--dp-worker", metavar="OUTDIR",
                         help="run as one rank of phase 21b (the script starts these itself)")
     return parser.parse_args(argv)
@@ -4296,4 +4530,6 @@ if __name__ == "__main__":
         sys.exit(ppo_sgd_only())
     if args.ppo_rollout and torch.cuda.is_available():
         sys.exit(ppo_rollout_only())
+    if args.batch_norm and torch.cuda.is_available():
+        sys.exit(batch_norm_only())
     sys.exit(main())

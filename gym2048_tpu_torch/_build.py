@@ -32,12 +32,14 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 LIBRARIES = {
     "fused_step": (CSRC / "fused_step.cu", BUILD / "libgym2048_fused.so"),
     "table_gather": (CSRC / "table_gather.cu", BUILD / "libgym2048_gather.so"),
+    "batch_norm": (CSRC / "batch_norm.cu", BUILD / "libgym2048_batch_norm.so"),
 }
 SOURCE, LIBRARY = LIBRARIES["fused_step"]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
+_F, _D = ctypes.c_float, ctypes.c_double
 _STR = ([_I], ctypes.c_char_p)
 # library name -> C function -> (argument types, result type)
 _SIGNATURES = {
@@ -52,6 +54,13 @@ _SIGNATURES = {
     "table_gather": {
         "gym_gather_values": ([_P, _P, _P, _LL, _P], _I),
         "gym_gather_error_string": _STR,
+    },
+    "batch_norm": {
+        "gym_bn_forward": ([_I, _I, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _F, _D, _P, _P,
+                            _P, _I, _I, _P], _I),
+        "gym_bn_backward": ([_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _P, _P, _P,
+                             _P, _I, _I, _P], _I),
+        "gym_bn_error_string": _STR,
     },
 }
 

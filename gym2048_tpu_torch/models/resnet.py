@@ -22,11 +22,16 @@ permutes them.
 BatchNorm follows flax, not torch: the running statistics keep 0.99 of
 themselves per update (torch's ``momentum=0.01``), eps is 1e-5, and the
 running variance takes the batch's biased variance (torch's own
-``BatchNorm2d`` takes the unbiased one). The normalisation itself is
-torch's fused ``native_batch_norm`` (one kernel forward, one backward),
-whose batch statistics (the mean and the inverse deviation) also update the
-running statistics; the batch's variance there is computed in two passes
-(Welford's, on the card) where flax computes ``E[x^2] - E[x]^2``
+``BatchNorm2d`` takes the unbiased one). Every BatchNorm of the models is
+followed by a ReLU, and the second of a residual block by the skip
+connection's add before it, so :class:`BatchNorm` is the whole layer, ``y =
+relu(batch_norm(x) [+ residual])``, in :mod:`.batch_norm`: on the card its
+own CUDA kernels (statistics, apply, backward reduce and elementwise; the
+running statistics updated by their finalize kernel), which round the
+output once and merge the batch's variance in float64; on the CPU the plain
+version, torch's ``native_batch_norm`` (whose batch statistics, the mean
+and the inverse deviation, also update the running statistics), the add and
+``relu``, where flax computes the variance as ``E[x^2] - E[x]^2``
 (``use_fast_variance``): the same to roundoff.
 Statistics are always float32. Inside :func:`sync_batch_norm` (data-parallel
 PPO), a train-mode BatchNorm takes its batch statistics over the ranks of a
@@ -55,6 +60,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from gym2048_tpu_torch.models.batch_norm import batch_norm_relu
 
 # flax's variance_scaling(1.0, "fan_in", "truncated_normal"): the standard
 # deviation of a unit normal truncated to [-2, 2]
@@ -98,8 +105,9 @@ def sync_batch_norm(group, world: int):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax's ``nn.BatchNorm`` over NCHW activations (see the module
-    docstring), with torch's parameter and buffer names."""
+    """flax's ``nn.BatchNorm`` over NCHW activations with the ReLU after it
+    and a residual added before that (see the module docstring), with
+    torch's parameter and buffer names."""
 
     def __init__(self, channels: int, device=None):
         super().__init__(channels, eps=1e-5, momentum=0.01, device=device)
@@ -125,22 +133,13 @@ class BatchNorm(nn.BatchNorm2d):
         y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
+        """``relu(batch_norm(x) [+ residual])``."""
         if self.training and _SYNC is not None:
-            return self._synced(x, *_SYNC)
-        if self.training:
-            # normalise by the batch's biased variance in torch's fused kernel,
-            # and update the running statistics with flax's rule from that
-            # kernel's own statistics: the batch's mean, and its biased
-            # variance as 1 / invstd^2 - eps, clipped at 0 as flax clips
-            out, mean, invstd = torch.native_batch_norm(
-                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, 0.01)
-                self.running_var.lerp_(invstd.pow(-2).sub_(self.eps).clamp_min_(0.0), 0.01)
-            return out
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            False, 0.0, self.eps)
+            y = self._synced(x, *_SYNC)
+            return F.relu(y if residual is None else y + residual)
+        return batch_norm_relu(x, self.weight, self.bias, self.running_mean, self.running_var,
+                               residual, self.training, self.momentum, self.eps)
 
 
 class Conv(nn.Conv2d):
@@ -187,8 +186,7 @@ class ResidualBlock(nn.Module):
         self.bn2 = BatchNorm(filters, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(y)) + x)
+        return self.bn2(self.conv2(self.bn1(self.conv1(x))), x)
 
 
 class _Trunk(nn.Module):
@@ -209,7 +207,7 @@ class _Trunk(nn.Module):
     def trunk(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, 4, 4, 16)`` one-hot -> ``(B, filters, 4, 4)`` features."""
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.initial_bn(self.initial_conv(x)))
+        x = self.initial_bn(self.initial_conv(x))
         for block in self.res_blocks:
             x = block(x)
         return x
@@ -250,7 +248,7 @@ class Game2048Model(_Trunk):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Pre-softmax logits ``(B, outputs)`` float32."""
-        x = F.relu(self.policy_bn(self.policy_conv(self.trunk(x))))
+        x = self.policy_bn(self.policy_conv(self.trunk(x)))
         return self.policy_fc(x.flatten(1)).float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

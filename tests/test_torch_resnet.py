@@ -165,8 +165,8 @@ def test_train_forward_and_batch_stats_match_flax(kind):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_train_batch_norm_statistics_follow_flax_rule(dtype):
-    """One train-mode BatchNorm step: the output is torch's ``batch_norm``
-    of the batch; the running statistics move by 0.01 towards the batch's
+    """One train-mode BatchNorm step: the output is the ReLU of torch's
+    ``batch_norm`` of the batch (the layer holds the ReLU); the running statistics move by 0.01 towards the batch's
     mean and biased variance (``torch.var_mean``'s, within 1e-6 of their
     magnitude), taken from the normalisation's own statistics; a channel
     with no variance adds a variance of 0, never below."""
@@ -179,8 +179,8 @@ def test_train_batch_norm_statistics_follow_flax_rule(dtype):
     x = x.contiguous(memory_format=torch.channels_last)
     x[:, 3] = 0.7
     out = bn(x)
-    assert torch.equal(out, torch.nn.functional.batch_norm(
-        x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps))
+    assert torch.equal(out, torch.relu(torch.nn.functional.batch_norm(
+        x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)))
     var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
     for got, want in ((bn.running_mean, torch.zeros(16).lerp(mean, 0.01)),
                       (bn.running_var, torch.ones(16).lerp(var, 0.01))):
