@@ -35,7 +35,6 @@ import torch
 from benchmark.entries.base import Entry as Base
 from benchmark.entries.base import leaf_gap, norm64
 from benchmark.harness import derive_seed
-from benchmark.tracing import Span
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -176,10 +175,6 @@ class Entry(Base):
         self.trainer = self.state = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-
-    # ---------------------------------------------------------------- trace
-    def spans(self):
-        return [Span(self.trainer, "_collect_rollout", "collect_rollout")]
 
     # ---------------------------------------------------------------- check
     def control(self):

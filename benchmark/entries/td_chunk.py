@@ -10,6 +10,12 @@ many chunks and compares: ``first_gap``, the worst leaf's gap of norms after
 the first chunk (the TC statistics as the first combines applied them), and
 ``change_gap``, the same for the change of each leaf after the last. The
 learner computes no loss to compare.
+
+A traced run starts with :func:`sample_steps` on the learner's state,
+outside the window: the lookup and TC work of the steps that the window
+then plays, counted with the plain reference from the same boards and
+draws, which ``gather_roofline.td`` and ``step_mfu.td`` read. No wrapper
+sits around a function of the program.
 """
 
 from __future__ import annotations
@@ -17,11 +23,58 @@ from __future__ import annotations
 import torch
 
 from benchmark.entries.base import Entry as Base
-from benchmark.entries.base import leaf_gap, norm64, reserve
+from benchmark.entries.base import leaf_gap, norm64
 from benchmark.harness import derive_seed
-from benchmark.tracing import Span
 
 LEAVES = ("table", "tc_e", "tc_a")
+
+
+def sample_steps(config: dict, state: dict, steps: int, window: int) -> dict:
+    """The work of ``steps`` greedy steps from a TD learner's ``state``,
+    played with the plain reference (``reference/rules.py``,
+    ``reference/ntuple.py``) and no update: it reads ``state["boards"]``,
+    ``state["table"]`` and a copy of ``state["generator"]``, draws each
+    step's uniforms as the learner does (10 rows with the carousel, else
+    6), spawns after each move and restarts a finished game from a fresh
+    board. So it plays the learner's next steps on the same boards and
+    draws, apart from moves that the learner's TC combines (every
+    ``window`` steps) change and the carousel's restarts (a few boards in a
+    thousand). Returns ``lookup_indices`` and ``lookup_sectors``, each
+    step's indices into the table and their distinct 32-byte sectors (all
+    four afterstates of every board), and ``chosen_sectors``, for each
+    ``window`` steps the distinct sectors that their chosen afterstates of
+    boards with a legal move address together: what a TC window's updates
+    touch."""
+    from benchmark import counts
+    from benchmark.reference import rules
+    from benchmark.reference.ntuple import Network
+
+    boards, table = state["boards"], state["table"]
+    dev, n = boards.device, boards.shape[0]
+    net = Network(config["tuples"], config["n_vals"], config["thresholds"], dev)
+    gen = torch.Generator(device=dev)
+    gen.set_state(state["generator"].get_state())
+    rows = 10 if "car_boards" in state else 6
+    n_idx, sectors, chosen_sectors, chosen = [], [], [], []
+    for t in range(steps):
+        u = torch.rand((rows, n), generator=gen, device=dev)
+        after_all, gain, legal = rules.move_all(boards)
+        idx = net.indices(after_all.reshape(n * 4, 4, 4))
+        n_idx.append(idx.numel())
+        sectors.append(counts.distinct_sectors(idx))
+        v = (table[idx].sum(-1) / 8.0).reshape(n, 4)
+        q = torch.where(legal, gain.to(v.dtype) + v, -torch.inf)
+        a = q.argmax(-1, keepdim=True)
+        after = after_all.gather(1, a[:, :, None, None].expand(-1, 1, 4, 4))[:, 0]
+        alive = legal.any(-1)
+        chosen.append(net.indices(after[alive]).reshape(-1))
+        if (t + 1) % window == 0:
+            chosen_sectors.append(counts.distinct_sectors(torch.cat(chosen)))
+            chosen = []
+        nxt = rules.spawn(after, u[0], u[1])
+        boards = torch.where(alive[:, None, None], nxt, rules.fresh_boards(u[2:6].T))
+    return {"lookup_indices": n_idx, "lookup_sectors": sectors,
+            "chosen_sectors": chosen_sectors}
 
 
 class Entry(Base):
@@ -48,6 +101,7 @@ class Entry(Base):
         self.gen_seed = derive_seed(seed, "td")
         self.trainer = None
         self.state = None
+        self.sample = None
 
     def _readings(self, state) -> dict:
         init = self.traffic["init_value"] / len(self.config["tuples"])
@@ -73,19 +127,13 @@ class Entry(Base):
             torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- trace
-    def spans(self):
-        from gym2048_tpu_torch.models import ntuple_big
-
-        self.stash = {"gather_idx": [], "greedy": []}
-        # the window's lookups: 4 bytes for each of 4 x 32 indices an env a step
-        reserve(self.device, self.traffic["trace_units"] * self.cfg.chunk_steps
-                * self.cfg.n_envs * 4 * 32 * 4 * 5 // 4)
-        keep_idx = lambda args, kwargs, out: self.stash["gather_idx"].append(
-            (len(self.stash["greedy"]), args[1]))
-        keep_greedy = lambda args, kwargs, out: self.stash["greedy"].append((out[1], out[4]))
-        return [Span(self.td, "_tc_combine", "tc_combine"),
-                Span(self.td, "_greedy_batch", "greedy", keep_greedy),
-                Span(ntuple_big, "gather_values", "gather_values", keep_idx)]
+    def traced_units(self, start, stop):
+        """The work sample of the steps that the traced window plays
+        (:func:`sample_steps` from the state they start from, before the
+        window), then the window."""
+        steps = int(self.traffic["trace_units"]) * self.steps_per_unit
+        self.sample = sample_steps(self.config, self.state, steps, self.traffic["tc_every"])
+        return super().traced_units(start, stop)
 
     # ---------------------------------------------------------------- check
     def reference_readings(self, dtype=torch.float32) -> list[dict]:

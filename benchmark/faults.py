@@ -47,15 +47,20 @@ def td_half_batch():
 
 
 def ppo_unchanged():
-    """An optimiser step that leaves the parameters as they are."""
+    """An optimiser step that leaves the parameters as they are:
+    ``Optimizer.apply``, the device part of a step that the eager step and
+    the captured CUDA graph both run, only zeroes the gradients, in place
+    (a graph keeps them as static buffers)."""
     from gym2048_tpu_torch.train import ppo
 
     def make(orig):
+        @torch.no_grad()
         def no_step(self):
-            self.adam.zero_grad(set_to_none=True)
-            self.count += 1
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.zero_()
         return no_step
-    return _patched(ppo.Optimizer, "step", make)
+    return _patched(ppo.Optimizer, "apply", make)
 
 
 def ppo_half_batch():

@@ -8,9 +8,11 @@ trace (a run on the CPU) gives no device metric.
 
 from __future__ import annotations
 
+import statistics
+
 import torch
 
-from benchmark import counts
+from benchmark import counts, program_spans
 
 GATHER_KERNELS = ("gather4_kernel", "gather1_kernel")
 
@@ -30,20 +32,22 @@ def ops_per_step(ctx) -> float | None:
 
 
 def span_device_share(ctx, span: str) -> float | None:
-    """The device time of the kernels launched inside ``span`` as a share of
-    the window's busy time (%)."""
-    s = ctx.span_device_s.get(span, 0.0)
+    """The device time of the operations launched inside ``span`` as a
+    share of the window's busy time (%)."""
+    s = ctx.span_device_s(span)
     if s <= 0 or ctx.busy_s <= 0:
         return None
     return 100.0 * s / ctx.busy_s
 
 
-def span_host_share(ctx, span: str) -> float | None:
-    """The host seconds inside ``span`` as a share of the window (%)."""
-    s = ctx.span_host_s.get(span, 0.0)
-    if s <= 0 or ctx.window_s <= 0:
+def span_device(ctx, spans: tuple[str, ...], scale: float) -> float | None:
+    """``scale`` times the device seconds of the operations launched inside
+    any of the program's ``spans`` (each once), a TD step for ``td.`` spans
+    or a PPO iteration for ``ppo.`` spans (``program_spans.units``)."""
+    s, n = ctx.span_device_s(*spans), program_spans.units(spans[0])
+    if s <= 0 or n <= 0:
         return None
-    return 100.0 * s / ctx.window_s
+    return scale * s / n
 
 
 def _gather_kernel_s(ctx) -> float:
@@ -53,7 +57,8 @@ def _gather_kernel_s(ctx) -> float:
 def gather_roofline(ctx) -> float | None:
     """The lookup kernel's least time by bytes (each index read and each
     value written once, each distinct 32-byte table sector read once) over
-    its kernel time, summed over the window's launches (%)."""
+    its kernel time, summed over the window's launches as the entry's
+    ``gather_values`` span kept them (%)."""
     launches = [idx for _, idx in ctx.stash.get("gather_idx", [])]
     kernel_s = _gather_kernel_s(ctx)
     if not launches or kernel_s <= 0:
@@ -63,32 +68,39 @@ def gather_roofline(ctx) -> float | None:
     return 100.0 * least / kernel_s
 
 
-def _network(ctx):
-    from benchmark.reference.ntuple import Network
+def _td_sample(ctx) -> dict | None:
+    return getattr(ctx.entry, "sample", None)
 
-    c = ctx.entry.config
-    return Network(c["tuples"], c["n_vals"], c["thresholds"], ctx.entry.device)
+
+def td_gather_roofline(ctx) -> float | None:
+    """The lookup kernel's least time by bytes (as :func:`gather_roofline`
+    counts them) over its kernel time (%): the bytes of one launch are the
+    mean of the TD entry's sampled steps (a step's lookup is one launch),
+    times the kernel's launches that the trace recorded."""
+    sample = _td_sample(ctx)
+    launches = sum(ctx.op_launches(k) for k in GATHER_KERNELS)
+    kernel_s = _gather_kernel_s(ctx)
+    if not sample or launches <= 0 or kernel_s <= 0:
+        return None
+    per_launch = statistics.fmean(counts.gather_bytes(n, sectors) for n, sectors in
+                                  zip(sample["lookup_indices"], sample["lookup_sectors"]))
+    return 100.0 * launches * counts.bytes_time_s(per_launch) / kernel_s
 
 
 def td_step_mfu(ctx) -> float | None:
     """The TD window's least time over its measured time (%). Its FLOPs are
-    negligible, so bytes bound it: each step's lookups (the distinct sectors
-    of its four afterstates' entries), and at every TC combine the read and
-    write of ``table``, ``tc_e`` and ``tc_a`` over the distinct sectors the
-    window's updates touched (the update of step t is the afterstate chosen
-    at step t - 1; the first window's first update, chosen before the
-    traced window, is left out)."""
-    lookups = ctx.stash.get("gather_idx", [])
-    greedy = ctx.stash.get("greedy", [])
-    if not lookups or ctx.window_s <= 0 or ctx.busy_s <= 0:
+    negligible, so bytes bound it, counted from the TD entry's sampled
+    steps (the sample's mean a step or a TC window, times the window's
+    steps or TC combines): each step's lookup, the distinct sectors of its
+    four afterstates' entries; each TC combine (one every ``tc_every``
+    steps), the read and write of ``table``, ``tc_e`` and ``tc_a`` over the
+    distinct sectors that the window's chosen afterstates touch."""
+    sample = _td_sample(ctx)
+    if not sample or not sample["chosen_sectors"] or ctx.window_s <= 0 or ctx.busy_s <= 0:
         return None
-    nbytes = sum(counts.SECTOR_BYTES * counts.distinct_sectors(idx) for _, idx in lookups)
-    net = _network(ctx)
-    k = int(ctx.entry.traffic["tc_every"])
-    for w in range(len(greedy) // k):
-        chosen = [greedy[t] for t in range(max(w * k - 1, 0), w * k + k - 1)]
-        idx = torch.cat([net.indices(after[alive]).reshape(-1) for after, alive in chosen])
-        nbytes += 6 * counts.SECTOR_BYTES * counts.distinct_sectors(idx)
+    combines = int(ctx.steps) // int(ctx.entry.traffic["tc_every"])
+    nbytes = counts.SECTOR_BYTES * statistics.fmean(sample["lookup_sectors"]) * ctx.steps
+    nbytes += 6 * counts.SECTOR_BYTES * statistics.fmean(sample["chosen_sectors"]) * combines
     return 100.0 * counts.bytes_time_s(nbytes) / ctx.window_s
 
 

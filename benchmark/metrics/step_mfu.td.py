@@ -1,4 +1,5 @@
-"""step_mfu.td: the whole TD window's least time on the card (bytes) over its measured time (%)."""
+"""step_mfu.td: the whole TD window's least time on the card (bytes, counted from the TD
+entry's sampled steps) over its measured time (%)."""
 
 from benchmark.layer_metrics import td_step_mfu
 

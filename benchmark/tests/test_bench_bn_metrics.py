@@ -50,8 +50,7 @@ OTHER = {
 
 def context(op_s: dict, units: int = 1) -> tracing.Context:
     return tracing.Context(entry=None, units=units, steps=128.0, window_s=1.0, busy_s=0.9,
-                           ops=len(op_s), op_s=op_s, span_device_s={}, span_host_s={}, stash={},
-                           breakdown={})
+                           ops=len(op_s), op_s=op_s)
 
 
 def test_listed_for_the_ppo_cell_in_the_model_layer():
