@@ -401,7 +401,8 @@ PPO_DP = dict(PPO_PRODUCTION, compute_dtype=torch.bfloat16, seed=SEED)
 DP_LOSS_RTOL = 1e-2
 # The top-level entry points (phases 23-25). Phase 23 runs python -m
 # gym2048_tpu_torch.bench as a user does, in a process of its own, through
-# BENCH_RUNNER, which also writes the process's launch counts to a file; its
+# BENCH_RUNNER, which also writes the process's launch counts (those inside
+# graph replays included, count_replayed_launches) to a file; its
 # line must carry root bench.py's keys (bench.py:260-299), every rate, and
 # the headline within BENCH_HEADLINE_RTOL of phase 8c's rollout rate (the same
 # kernel, shape and seed). Phases 24-25 run the dry run and the scaling bench
@@ -420,6 +421,8 @@ BENCH_HEADLINE_RTOL = 0.10
 BENCH_TIMEOUT = 480        # seconds, start-up included
 BENCH_RUNNER = """\
 import json, runpy, sys
+from chip_smoke import count_replayed_launches
+count_replayed_launches()
 from gym2048_tpu_torch.core import fused_step
 from gym2048_tpu_torch.models import batch_norm, table_gather
 path = sys.argv[1]
@@ -958,6 +961,39 @@ def reference_rollout(tr, state):
     return traj, last_value
 
 
+def count_replayed_launches() -> None:
+    """Make the libraries' host launch counters (``LAUNCHES`` of the fused
+    step, the lookup and the BatchNorm layer) count the launches inside
+    CUDA graph replays, which a host counter does not see: a
+    ``graphs.GraphedStep`` keeps the launches its capture counted, and each
+    later replay adds them again, so a step counts its kernels once whether
+    it ran eagerly, was captured (and replayed) or was replayed. Installed
+    once a process."""
+    from gym2048_tpu_torch.core import fused_step
+    from gym2048_tpu_torch.models import batch_norm, table_gather
+    from gym2048_tpu_torch.utils import graphs
+
+    replay = graphs.GraphedStep.replay
+    if getattr(replay, "counts_replayed_launches", False):
+        return
+    counters = (fused_step.LAUNCHES, table_gather.LAUNCHES, batch_norm.LAUNCHES)
+
+    def counted(step, *args):
+        capturing = step.captures and step.graph is None
+        before = [dict(c) for c in counters]
+        replay(step, *args)
+        if capturing:
+            step.captured_launches = [{k: c[k] - b[k] for k in c}
+                                      for c, b in zip(counters, before)]
+        for c, launched in zip(counters, () if capturing else
+                               getattr(step, "captured_launches", ())):
+            for k, n in launched.items():
+                c[k] += n
+
+    counted.counts_replayed_launches = True
+    graphs.GraphedStep.replay = counted
+
+
 def reference_td_steps(tr, carry: dict, alpha, length: int):
     """``tr._scan_steps(carry, alpha, length)`` written out step by step, on
     fresh tensors each step and without static buffers or a graph: the draw
@@ -965,15 +1001,17 @@ def reference_td_steps(tr, carry: dict, alpha, length: int):
     search (``td._greedy_batch``), then the trainer's ``_update`` and
     ``_restart`` step functions; with delayed TC the update accumulates
     into pending sums made for this call, combined into the table at the
-    end of every window of ``tc_every`` steps. Returns ``(carry, stats)``
-    as ``_scan_steps`` does: a new carry (the given one's generator,
-    advanced) and the per-step stats stacked ``(length,)``."""
+    end of every window of ``tc_every`` steps. The table is a copy of the
+    given one made for this call, since the update and the combine write
+    it in place. Returns ``(carry, stats)`` as ``_scan_steps`` does: a new
+    carry (the given one's generator, advanced) and the per-step stats
+    stacked ``(length,)``."""
     from gym2048_tpu_torch.train import td
 
     k, defer = tr._windows(length), tr._defer_tc
     update, restart, values = tr._update(alpha, defer), tr._restart(), tr._values()
     gen, (n, dev) = carry["generator"], (carry["boards"].shape[0], carry["boards"].device)
-    carry = dict(carry)
+    carry = dict(carry, table=carry["table"].clone())
     if defer:
         carry.update((p, torch.zeros_like(carry["table"])) for p in td._PENDING)
     stats = []
@@ -1363,6 +1401,7 @@ class Smoke:
         self.fs = fused_step
         self.tg = table_gather
         self.counters = (fused_step.LAUNCHES, table_gather.LAUNCHES, batch_norm.LAUNCHES)
+        count_replayed_launches()
         self.dev = torch.device("cuda")
         self.kernels = {name: {"name": name, "route": "cuda", "source": source,
                                "replaces": where, "library_ms": None}
@@ -2114,7 +2153,10 @@ class Smoke:
                      lookups_per_step: int):
         """One chunk of ``tr`` from a copy of ``state`` with the lookup kernel
         or the plain lookup, in deterministic mode or not; checks the
-        kernel's launches and returns the state and the chunk's seconds."""
+        kernel's launches and returns the state and the chunk's seconds.
+        The chunk builds its own step holders: a search graph captured with
+        the other lookup would replay it."""
+        tr._tail = tr._greedy = None
         launched = self.tg.LAUNCHES["gather_values"]
         torch.use_deterministic_algorithms(deterministic)
         try:
@@ -2203,16 +2245,21 @@ class Smoke:
                 got, gs, secs = scan_chunks(tr, tr._scan_steps, state, TD_TAIL_CHUNKS)
             finally:
                 torch.use_deterministic_algorithms(False)
-            check(tr._tail.graphed.graph is not None, f"{label}: no graph was captured")
+            check(tr._tail.graphed.graph is not None and tr._greedy.graphed.graph is not None,
+                  f"{label}: the search's or the tail's graph was not captured")
             bad = state_diffs(want, got)
             check(not bad, f"{label}: the chunks differ from the reference's in {bad}")
             check(all(torch.equal(a, b) for x, y in zip(ws, gs) for a, b in zip(x, y)),
                   f"{label}: the chunks' stats differ from the reference's")
             del want, got
+            host = self.tail_host_us(tr, state)
             parts.append(f"{label}: deterministic, {TD_TAIL_CHUNKS} chunks of "
                          f"{tr.cfg.chunk_steps} steps identical to the reference in all "
                          f"{len(state)} leaves and the stats (the first chunk, capture "
-                         f"included, {secs[0]:.3f} s, the next {secs[-1]:.3f} s)")
+                         f"included, {secs[0]:.3f} s, the next {secs[-1]:.3f} s); default "
+                         f"mode, untraced host us a step: "
+                         + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+                         + "; " + self.table_writes(tr, state))
             if label == "flagship":
                 parts.append(self.tail_flagship(tr, state))
             del tr, state
@@ -2238,32 +2285,34 @@ class Smoke:
             start = clone_state(state)
             profiler.clear()
             prof[name] = launch_profile(lambda: scan(start, alpha, steps), steps)
-            replays = profiler.summary()["counters"].get("td.tail_replays", 0)
-            check(replays == (steps if name == "program" else 0),
-                  f"{name}: {replays} tail replays counted in {steps} steps")
+            counters = profiler.summary()["counters"]
+            replays = [counters.get(f"td.{h}_replays", 0) for h in ("greedy", "tail")]
+            check(replays == [steps if name == "program" else 0] * 2,
+                  f"{name}: {replays} search and tail replays counted in {steps} steps")
         profiler.clear()
         e, r = prof["reference"], prof["program"]
-        check(r["graph_launches"] == 1 and r["ops"] >= e["ops"] - 5,
+        check(r["graph_launches"] == 2 and r["ops"] >= e["ops"] - 5,
               f"the profiler lists {r['ops']:.1f} device operations a step against the "
               f"reference step's {e['ops']:.1f}, {r['graph_launches']:.2f} graph launches")
-        host = self.tail_host_us(tr, state)
         return (f"flagship default mode: change gap {gap:.3e} (limit {limit}), "
                 f"leaves that differ {differ}; profiled chunk, reference / program: device "
-                f"operations a step {e['ops']:.1f} / {r['ops']:.1f} (the graph's listed one by "
+                f"operations a step {e['ops']:.1f} / {r['ops']:.1f} (the graphs' listed one by "
                 f"one), host launches a step {e['launches']:.1f} / {r['launches']:.1f} "
-                f"({r['graph_launches']:.0f} a graph launch); the program's device busy "
-                f"{r['busy_s']:.4f} s of {r['wall_s']:.4f} s; untraced host us a step of its "
-                f"chunk: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+                f"({r['graph_launches']:.0f} of them graph launches), {steps} replays of the "
+                f"search and of the tail; the program's device busy {r['busy_s']:.4f} s of "
+                f"{r['wall_s']:.4f} s")
 
     @staticmethod
     def tail_host_us(tr, state: dict) -> dict[str, float]:
         """Host microseconds a step of one chunk of ``tr`` from a copy of
-        ``state``, with no profiler: in the greedy search, in the
-        tail's replay (its copies and the graph launch) and in the rest of
-        the chunk (the draws, the combines, the loads and copies out)."""
-        from gym2048_tpu_torch.train import td
-
-        spent = {"greedy": 0.0, "replay": 0.0}
+        ``state`` on its built holders, with no profiler: in the greedy
+        search's replay, in the tail's, and in the rest of the chunk (the
+        draws, the update without delayed TC, the combines, the loads and
+        copies out), and the chunk's in all. An untimed chunk first builds
+        the holders for the current mode."""
+        alpha = torch.as_tensor(tr.cfg.alpha, dtype=torch.float32)
+        tr._scan_steps(clone_state(state), alpha, tr.cfg.chunk_steps)
+        spent = {"search": 0.0, "tail": 0.0}
 
         def timed(fn, key):
             def wrapper(*args):
@@ -2273,11 +2322,10 @@ class Smoke:
                 return out
             return wrapper
 
-        greedy, tail = td._greedy_batch, tr._tail
-        td._greedy_batch = timed(greedy, "greedy")
-        tail.replay = timed(tail.replay, "replay")
+        greedy, tail = tr._greedy, tr._tail
+        greedy.replay = timed(greedy.replay, "search")
+        tail.replay = timed(tail.replay, "tail")
         start = clone_state(state)
-        alpha = torch.as_tensor(tr.cfg.alpha, dtype=torch.float32)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2285,13 +2333,35 @@ class Smoke:
             host = time.perf_counter() - t0
             torch.cuda.synchronize()
         finally:
-            td._greedy_batch = greedy
-            del tail.replay
-        check(tr._tail is tail, "the timed chunk built a new tail")
+            del greedy.replay, tail.replay
+        check(tr._tail is tail and tr._greedy is greedy, "the timed chunk built new holders")
+        check(greedy.graphed.graph is not None and tail.graphed.graph is not None,
+              "the timed chunk ran no replays")
         steps = tr.cfg.chunk_steps
         out = {k: 1e6 * v / steps for k, v in spent.items()}
         out["rest"] = 1e6 * host / steps - sum(out.values())
+        out["chunk"] = 1e6 * host / steps
         return out
+
+    @staticmethod
+    def table_writes(tr, state: dict) -> str:
+        """The device cost of keeping the learner's table at one address
+        (the search's graph reads it there): a chunk copies the table into
+        the tail's buffer and out again; without delayed TC each step's
+        update writes it in place (``add_``), timed beside the new table
+        that ``+`` makes."""
+        table = state["table"]
+        buf = torch.empty_like(table)
+        copy_ms, clone_ms = event_ms(lambda: buf.copy_(table), 5), event_ms(table.clone, 5)
+        text = (f"table {table.numel() * 4 / 1e6:.1f} MB: copied in {copy_ms:.4f} ms and out "
+                f"{clone_ms:.4f} ms a chunk")
+        if not tr._defer_tc:
+            step = torch.full_like(table, 0.5)
+            plus_ms = event_ms(lambda: table + step, 5)
+            add_ms = event_ms(lambda: buf.add_(step), 5)
+            text += (f"; a step's table write in place {add_ms:.4f} ms, as a new table "
+                     f"{plus_ms:.4f} ms ({tr.cfg.chunk_steps} steps a chunk)")
+        return text
 
     # 15d
     def td_throughput(self) -> str:
@@ -2439,19 +2509,31 @@ class Smoke:
     # 17d
     def td_small_throughput(self) -> str:
         """Steps/s of the small learner in three configs (bench_td's from
-        phase 23), and ``torch.profiler`` over one chunk of the first."""
+        phase 23), ``torch.profiler`` over one chunk of the first (with the
+        replays of its two step holders), its host time a step and the
+        device cost of its table writes."""
         from gym2048_tpu_torch.train import td
+        from gym2048_tpu_torch.utils import profiler
 
         rates = "; ".join([
             self.td_rate(TD_SMALL, "ntuple_table_tc1b config (TC, exact lookup)"),
             self.bench_rate("td_train_steps_per_s", "bench_td (split lookup, alpha 0.1)"),
             self.td_rate({}, "CLI defaults (TDConfig(): 4096 envs x 256)")])
-        profiled, device_us = self.profile_chunk(self.small_trainer, self.small_state)
+        tr, state = self.small_trainer, self.small_state
+        profiler.clear()
+        profiled, device_us = self.profile_chunk(tr, state)
+        counters = profiler.summary()["counters"]
+        profiler.clear()
         busy = sum(device_us.values())
         lookup = sum(us for k, us in device_us.items()
                      if "gather4_kernel" in k or "gather1_kernel" in k)
         share = f"; the lookup kernel {lookup / busy:.4f} of the device time" if busy else ""
-        return f"{rates}; on {self.smi}. One TC chunk profiled: {profiled}{share}"
+        host = self.tail_host_us(tr, state)
+        return (f"{rates}; on {self.smi}. One TC chunk profiled: {profiled}{share}; replays "
+                f"in it: search {counters.get('td.greedy_replays', 0)}, tail "
+                f"{counters.get('td.tail_replays', 0)} of {tr.cfg.chunk_steps} steps; untraced "
+                f"host us a step: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+                + "; " + self.table_writes(tr, state))
 
     # 17e
     def td_small_learning(self) -> str:

@@ -191,7 +191,7 @@ def td_update(table: torch.Tensor, boards: torch.Tensor, deltas: torch.Tensor, a
     features: each touched entry moves by the mean of the ``alpha * delta
     * 8 / 136`` occurrences that hit it, so one board's value moves by
     exactly ``alpha * delta``; boards with ``valid`` False contribute
-    nothing. Returns a new table."""
+    nothing. Writes the table in place and returns it."""
     return network().td_update(table, boards, deltas, alpha, valid)
 
 
@@ -201,8 +201,8 @@ def td_update_tc(table: torch.Tensor, tc_e: torch.Tensor, tc_a: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Temporal-coherence TD update (Beal & Smith 1999): entry rates
     ``|tc_e| / tc_a`` over the signed and absolute masses of the updates
-    that hit it, ``alpha`` the meta-rate. Returns new ``(table, tc_e,
-    tc_a)``."""
+    that hit it, ``alpha`` the meta-rate. Writes the table in place;
+    returns ``(table, tc_e, tc_a)``, the accumulators new."""
     return network().td_update_tc(table, tc_e, tc_a, boards, deltas, alpha, valid)
 
 
@@ -245,14 +245,17 @@ def _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha):
     add the signed and absolute TD-error masses ``sums`` / ``absums`` into
     ``tc_e`` / ``tc_a``, derive each entry's coherence rate ``|E| / A``
     (1.0 for an entry never touched), and move ``table`` by ``alpha`` x rate
-    x the count-normalised mean update. Returns new ``(table, tc_e, tc_a)``;
-    the inputs are not modified.
+    x the count-normalised mean update. The table is written IN PLACE, so
+    that a CUDA graph that reads it keeps reading the learner's table;
+    returns ``(table, tc_e, tc_a)``, the table the given tensor and the
+    accumulators new. The other inputs are not modified.
 
     The operations and their order are the JAX module's,
     ``table + alpha * rate * d``, each rounded as the expression reads (as
     JAX runs it op by op; compiled, XLA's CPU backend fuses the last
-    multiply-add into one rounding). The in-place steps below only reuse
-    temporaries. At the flagship width each array is 805 MB.
+    multiply-add into one rounding): ``add_`` rounds the sum once, as ``+``
+    does. The other in-place steps only reuse temporaries. At the flagship
+    width each array is 805 MB.
     """
     d = sums / cnts.clamp(min=1.0)
     e2 = tc_e + sums
@@ -260,4 +263,4 @@ def _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha):
     rate = e2.abs().div_(a2.clamp(min=1e-30))
     rate.masked_fill_(~(a2 > 0.0), 1.0)  # where(a2 > 0, rate, 1), NaN included
     step = rate.mul_(alpha).mul_(d)  # (alpha * rate) * d
-    return table + step, e2, a2
+    return table.add_(step), e2, a2

@@ -170,10 +170,12 @@ class NTupleNetwork:
         ``boards`` receives the mean of the ``alpha * deltas`` occurrences
         that hit it, so a single board's value moves by exactly ``alpha *
         delta`` even where its symmetries collide on an entry. Boards with
-        ``valid`` False contribute nothing. Returns a new table."""
+        ``valid`` False contribute nothing. The table is written IN PLACE
+        (``add_``, one rounding as ``+``), so that a CUDA graph that reads
+        it keeps reading the learner's table, and returned."""
         sums, cnts = self._scatter2(boards, (alpha * 8.0 / self.n_features) * deltas,
                                     valid, table.numel())
-        return table + sums / cnts.clamp(min=1.0)
+        return table.add_(sums / cnts.clamp(min=1.0))
 
     def td_update_tc(self, table: torch.Tensor, tc_e: torch.Tensor,
                      tc_a: torch.Tensor, boards: torch.Tensor, deltas: torch.Tensor,
@@ -182,8 +184,9 @@ class NTupleNetwork:
         """Temporal-coherence TD update (Beal & Smith 1999): each entry's rate
         is ``|sum of its updates| / sum of their magnitudes``, kept in
         ``tc_e`` / ``tc_a``. Three scatters on one index vector, then
-        :func:`~gym2048_tpu_torch.models.ntuple._tc_combine`. Returns new
-        ``(table, tc_e, tc_a)``."""
+        :func:`~gym2048_tpu_torch.models.ntuple._tc_combine`, which writes
+        the table IN PLACE (as :meth:`td_update`). Returns ``(table, tc_e,
+        tc_a)``, the accumulators new."""
         w0 = (8.0 / self.n_features) * deltas
         sums, absums, cnts = self._scatter3(boards, w0, valid, table.numel())
         return _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha)

@@ -33,9 +33,12 @@ Each step draws its uniforms in one call (:meth:`TDTrainer._draws`) into a
 buffer, so a test can feed the step the numbers JAX drew. The steps of a
 chunk are a Python loop with no host sync (:meth:`TDTrainer._scan_steps`);
 :meth:`TDTrainer.learn` syncs once per logged chunk. On every device each
-step's tail, everything after the greedy search but an update that writes
-the table, runs on the static buffers of a :class:`_StepTail`: one CUDA
-graph replay on the card, a plain call of the same code elsewhere.
+step's greedy search runs in a :class:`_GreedySearch` and its tail,
+everything after the search but an update that writes the table, on the
+static buffers of a :class:`_StepTail`: two CUDA graph replays on the card,
+plain calls of the same code elsewhere. The search's graph reads the table
+at one address, so every write of the table during a chunk (the delayed-TC
+combine, the update without delayed TC) lands in that tensor in place.
 
 Data parallel (:meth:`TDTrainer.make_sharded_chunk`, ``learn(mesh=...)``,
 ``--sharded``): chunk-synchronous local learners over the ``data`` axis of
@@ -183,25 +186,27 @@ class _StepTail:
     call of the same code.
 
     The buffers: :attr:`u`, the step's draw (:meth:`TDTrainer._draws`
-    writes it); the inputs ``after``, ``r``, ``v_after``, ``alive`` that a
-    replay copies in; :attr:`carry`, the step's leaves and, with delayed
-    TC, the pending sums, which stay zero between windows (the combine
-    zeroes them); :attr:`stats`, ``(n_done, done_score, highest)`` of each
-    step. The graph reads no table and no host scalar: the update of a
-    learner without delayed TC writes the table, and stays outside."""
+    writes it); :attr:`carry`, the step's leaves, the table and, with
+    delayed TC, the pending sums, which stay zero between windows (the
+    combine zeroes them); :attr:`stats`, ``(n_done, done_score, highest)``
+    of each step. The inputs ``after``, ``r``, ``v_after``, ``alive`` are
+    the greedy search's results where they lie (:attr:`inputs`, copied
+    nowhere): on the card the outputs of the search's graph, the same
+    tensors at every replay. The graph reads no host scalar and not the
+    table, which the search's graph reads and the combine (and the update
+    without delayed TC, which stays outside) writes in place."""
 
     def __init__(self, carry: dict, length: int, update, restart):
         boards = carry["boards"]
         dev, n = boards.device, boards.shape[0]
         self.key = self.key_of(carry, length)
         self.update, self.restart = update, restart
-        self.carry = {k: torch.zeros_like(carry[k]) for k in _STEP_KEYS & carry.keys()}
+        self.carry = {k: torch.zeros_like(carry[k]) for k in _TAIL_KEYS & carry.keys()}
         if update is not None:
             self.carry.update((p, torch.zeros_like(carry["table"])) for p in _PENDING)
         self.u = torch.zeros((10 if "car_boards" in carry else 6, n), device=dev)
         self.draws = _split_draws(self.u)
-        self.inputs = (torch.zeros_like(boards), torch.zeros(n, device=dev),
-                       torch.zeros(n, device=dev), torch.zeros(n, dtype=torch.bool, device=dev))
+        self.inputs = None  # the greedy search's (after, r, v_after, alive)
         self.stats = (torch.zeros(length, device=dev), torch.zeros(length, device=dev),
                       torch.zeros(length, dtype=boards.dtype, device=dev))
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -211,9 +216,10 @@ class _StepTail:
     @staticmethod
     def key_of(carry: dict, length: int) -> tuple:
         """What a tail is built for: the carry's device, envs and leaves,
-        the step count and torch's kernel flags (read at capture)."""
-        return (carry["boards"].device, carry["boards"].shape[0], length,
-                tuple(sorted(_STEP_KEYS & carry.keys())), graphs.kernel_flags())
+        the table's size, the step count and torch's kernel flags (read at
+        capture)."""
+        return (carry["boards"].device, carry["boards"].shape[0], carry["table"].numel(),
+                length, tuple(sorted(_STEP_KEYS & carry.keys())), graphs.kernel_flags())
 
     def _run(self) -> None:
         """The tail once, on the buffers (what the graph holds)."""
@@ -230,8 +236,8 @@ class _StepTail:
         self.step.add_(1)
 
     def load(self, carry: dict) -> dict:
-        """Copy ``carry``'s step leaves into the buffers for a scan;
-        returns the buffers (the pending sums among them)."""
+        """Copy ``carry``'s step leaves and table into the buffers for a
+        scan; returns the buffers (the pending sums among them)."""
         for k, buf in self.carry.items():
             if k in _PENDING:
                 if self.dirty:
@@ -242,25 +248,70 @@ class _StepTail:
         self.dirty = True
         return self.carry
 
-    def replay(self, after, r, v_after, alive) -> None:
-        """One step's tail on the greedy search's results, in the span
-        ``td.tail`` where the tail captures a graph (on the card)."""
+    def replay(self, inputs: tuple) -> None:
+        """One step's tail on the greedy search's results ``(after, r,
+        v_after, alive)``, read where they lie, in the span ``td.tail``
+        where the tail captures a graph (on the card). A captured graph
+        reads the tensors it was captured on: the search's graph writes
+        them at every replay."""
+        if self.graphed.graph is not None and any(
+                a is not b for a, b in zip(inputs, self.inputs)):
+            raise RuntimeError("the tail's graph reads other tensors than these inputs")
+        self.inputs = inputs
         with profiler.span("td.tail") if self.graphed.captures else contextlib.nullcontext():
-            for buf, x in zip(self.inputs, (after, r, v_after, alive)):
-                buf.copy_(x)
             if self.graphed.warming:
                 self.graphed.eager(self._run)
             else:
                 self.graphed.replay()
 
     def unload(self, state: dict) -> tuple[dict, tuple]:
-        """The scan's result: ``state`` with copies of the step leaves in
-        place of the buffers and without the pending sums, and copies of
-        the stats, so that the next scan's replays change neither."""
+        """The scan's result: ``state`` with copies of the step leaves and
+        the table in place of the buffers and without the pending sums,
+        and copies of the stats, so that the next scan's replays change
+        neither."""
         self.dirty = False
         out = {k: v for k, v in state.items() if k not in _PENDING}
         out.update((k, buf.clone()) for k, buf in self.carry.items() if k not in _PENDING)
         return out, tuple(s.clone() for s in self.stats)
+
+
+class _GreedySearch:
+    """The greedy search of every step that :meth:`TDTrainer._scan_steps`
+    runs, on a :class:`_StepTail`'s buffers: :func:`_greedy_batch` of its
+    ``boards`` valued on its ``table`` (``rules.move_all``, the feature
+    indices, the lookup, the sum over symmetries, the argmax, the chosen
+    afterstate's gathers), its results in :attr:`out`, which the tail
+    reads. On a CUDA device each :meth:`replay` after the first
+    :data:`graphs.WARMUP` launches one CUDA graph of it, in the span
+    ``td.greedy`` (the warm-ups and the capture open theirs in
+    :func:`_greedy_batch`); its outputs are then the same tensors at every
+    replay. Elsewhere every replay is a plain call of the same code, which
+    calls :func:`_greedy_batch` and the network's lookup through their
+    modules. Built for one tail: it is keyed by the tail's key and the
+    identity of the table buffer."""
+
+    def __init__(self, values, tail: _StepTail):
+        self.values, self.key = values, tail.key
+        self.table, self.boards = tail.carry["table"], tail.carry["boards"]
+        self.out = None
+        self.graphed = graphs.GraphedStep(self._run, "td.greedy_replays", self.boards.device,
+                                          span="td.greedy")
+
+    def fits(self, tail: _StepTail) -> bool:
+        """Whether this search was built for ``tail`` and its table."""
+        return self.key == tail.key and self.table is tail.carry["table"]
+
+    def _run(self) -> None:
+        """The search once, on the buffers (what the graph holds)."""
+        self.out = _greedy_batch(self.values.make_value_fn(self.table), self.boards)[1:]
+
+    def replay(self) -> tuple:
+        """One step's search -> ``(after, r, v_after, alive)``."""
+        if self.graphed.warming:
+            self.graphed.eager(self._run)
+        else:
+            self.graphed.replay()
+        return self.out
 
 
 @dataclasses.dataclass
@@ -285,7 +336,7 @@ class TDTrainer:
         self.device = torch.device(device)
         self.chunks = 0  # train_chunk calls: the unit id of their spans
         self._net = self._small = None
-        self._tail = None  # the _StepTail of _scan_steps
+        self._tail = self._greedy = None  # the _StepTail and _GreedySearch of _scan_steps
         if cfg.arch == "small":
             if cfg.tc_every != 1 or cfg.carousel:
                 raise ValueError("tc_every/carousel are big-net staged-training features")
@@ -362,9 +413,10 @@ class TDTrainer:
 
     def _update(self, alpha, defer_tc: bool):
         """The step's TD update: ``update(carry, new, r, v_after, alive)``
-        writes into ``new`` the table (``tc_e``, ``tc_a``), or with
-        ``defer_tc`` the pending sums, that the update of ``carry``'s
-        previous afterstate gives. The function holds the config and the
+        writes into ``new`` the table (in place: ``new``'s table is
+        ``carry``'s) and new ``tc_e``, ``tc_a``, or with ``defer_tc`` the
+        pending sums (in place), that the update of ``carry``'s previous
+        afterstate gives. The function holds the config and the
         network, not the trainer, which a :class:`_StepTail` that keeps it
         would keep alive."""
         cfg, net = self.cfg, self._net
@@ -440,7 +492,8 @@ class TDTrainer:
     @staticmethod
     def _combine(carry: dict, alpha) -> None:
         """The delayed-TC combine of the pending sums into ``carry``'s
-        table, ``tc_e`` and ``tc_a``, then the sums zeroed."""
+        table (in place), ``tc_e`` and ``tc_a`` (new), then the sums
+        zeroed."""
         with profiler.span("td.combine"):
             carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
                 carry["table"], carry["tc_e"], carry["tc_a"],
@@ -464,37 +517,41 @@ class TDTrainer:
 
     def _scan_steps(self, carry: dict, alpha, length: int):
         """``length`` steps, each with its draws from the carry's generator.
-        A step draws into the buffer of a :class:`_StepTail` and runs the
-        greedy search eagerly (so do the update and its ``alpha`` without
-        delayed TC, where the step writes the table), then the tail on the
-        tail's buffers: one CUDA graph replay on the card, a plain call
-        elsewhere. With ``cfg.tc_every > 1`` (delayed TC) the TC statistics
-        accumulate in the tail's pending sums, and the combine runs eagerly
-        at the end of every window of ``tc_every`` steps. The tail is built
-        at the first call and again when the shapes, the step count or
-        torch's kernel flags change; the carry's leaves are copied into it
-        at the start and out of it at the end. Returns a new carry (the
-        given one's generator, advanced) and the per-step stats stacked
-        ``(length,)``."""
+        A step draws into the buffer of a :class:`_StepTail`, runs the
+        greedy search (:class:`_GreedySearch`) on the tail's boards and
+        table, without delayed TC the update with its ``alpha`` eagerly (it
+        writes the table in place), then the tail on the search's results:
+        on the card the search and the tail are each one CUDA graph replay,
+        elsewhere plain calls. With ``cfg.tc_every > 1`` (delayed TC) the
+        TC statistics accumulate in the tail's pending sums, and the
+        combine runs eagerly at the end of every window of ``tc_every``
+        steps, writing the table in place. The tail, and the search with
+        it, is built at the first call and again when the shapes, the step
+        count or torch's kernel flags change; the carry's leaves and table
+        are copied into it at the start and out of it at the end. Returns
+        a new carry (the given one's generator, advanced) and the per-step
+        stats stacked ``(length,)``."""
         k, defer = self._windows(length), self._defer_tc
         key = _StepTail.key_of(carry, length)
         if self._tail is None or self._tail.key != key:
-            self._tail = None  # the old graph and buffers go first
+            self._tail = self._greedy = None  # the old graphs and buffers go first
             self._tail = _StepTail(carry, length, self._update(None, True) if defer else None,
                                    self._restart())
         tail = self._tail
+        if self._greedy is None or not self._greedy.fits(tail):
+            self._greedy = None
+            self._greedy = _GreedySearch(self._values(), tail)
+        greedy = self._greedy
         state = dict(carry)
         state.update(tail.load(carry))
         gen = carry["generator"]
-        values = self._values()
         update = None if defer else self._update(alpha, False)
         for t in range(length):
             self._draws(gen, tail.u)
-            value_fn = values.make_value_fn(state["table"])
-            _, after, r, v_after, alive = _greedy_batch(value_fn, state["boards"])
+            found = greedy.replay()
             if update is not None:
-                update(state, state, r, v_after, alive)
-            tail.replay(after, r, v_after, alive)
+                update(state, state, *found[1:])
+            tail.replay(found)
             if defer and (t + 1) % k == 0:
                 self._combine(state, alpha)
         return tail.unload(state)
@@ -597,6 +654,9 @@ _BATCH_KEYS = frozenset({"boards", "score", "prev_after", "prev_v", "prev_valid"
 _SLOT_KEYS = frozenset({"car_boards", "car_filled"})
 # the leaves a step writes, besides the table and its TC accumulators
 _STEP_KEYS = _BATCH_KEYS | _SLOT_KEYS
+# the leaves a _StepTail holds: those and the table (which its tail's graph
+# does not read: the greedy search's graph reads it)
+_TAIL_KEYS = _STEP_KEYS | {"table"}
 # the additive leaves that the sharded chunk merges
 _MERGED = ("table", "tc_e", "tc_a")
 

@@ -1,12 +1,13 @@
 """A step on static buffers, run as one CUDA graph replay.
 
-A holder (``train/td.py::_StepTail``, ``train/ppo.py::_SgdGraph``,
-``train/ppo.py::_RolloutGraph``) keeps a step's buffers and ``run``, the
-step's work on them; a :class:`GraphedStep` runs it. On a CUDA device the
-first :data:`WARMUP` steps run eagerly on a side stream, as real steps (so
-cuBLAS's and cuDNN's workspaces and the allocator's blocks are set up before
-a capture), the next step is captured once, and it and every later step is a
-replay of the graph. Elsewhere every step is a plain call.
+A holder (``train/td.py::_GreedySearch`` and ``_StepTail``,
+``train/ppo.py::_SgdGraph``, ``train/ppo.py::_RolloutGraph``) keeps a step's
+buffers and ``run``, the step's work on them; a :class:`GraphedStep` runs
+it. On a CUDA device the first :data:`WARMUP` steps run eagerly on a side
+stream, as real steps (so cuBLAS's and cuDNN's workspaces and the
+allocator's blocks are set up before a capture), the next step is captured
+once, and it and every later step is a replay of the graph. Elsewhere every
+step is a plain call.
 """
 
 from __future__ import annotations
@@ -31,12 +32,14 @@ def kernel_flags() -> tuple:
 class GraphedStep:
     """``run(*args)``, a step on a holder's buffers, as one CUDA graph replay
     on ``device`` (see the module's docstring), each replay counted in the
-    profiler's ``counter``. ``device`` None or not a CUDA device: plain calls,
-    nothing captured. The warm-ups count in :attr:`warm`, the captured graph
-    is :attr:`graph` (None until the first replay)."""
+    profiler's ``counter`` and, with ``span``, inside the profiler span
+    ``span`` (the capture is not). ``device`` None or not a CUDA device:
+    plain calls, nothing captured. The warm-ups count in :attr:`warm`, the
+    captured graph is :attr:`graph` (None until the first replay)."""
 
-    def __init__(self, run: Callable, counter: str, device: torch.device | None):
-        self.run, self.counter = run, counter
+    def __init__(self, run: Callable, counter: str, device: torch.device | None,
+                 span: str | None = None):
+        self.run, self.counter, self.span = run, counter, span
         self.warm = 0
         self.side = (torch.cuda.Stream(device)
                      if device is not None and device.type == "cuda" else None)
@@ -78,5 +81,9 @@ class GraphedStep:
             with torch.cuda.graph(graph):
                 self.run(*args)
             self.graph = graph
-        self.graph.replay()
+        if self.span is None:
+            self.graph.replay()
+        else:
+            with profiler.span(self.span):
+                self.graph.replay()
         profiler.count(self.counter, 1)

@@ -231,9 +231,11 @@ def test_td_updates_match_jax_bit_for_bit(fn, masked, n_stages):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert_bits(g, w, fn)
-    assert not torch.equal(got[0], targs[0])  # the table moved
+    assert got[0] is targs[0]  # the table is written in place
+    before = t(table)
+    assert not torch.equal(got[0], before)  # the table moved
     if n_stages > 1:  # only stage 0 is updated
-        assert torch.equal(got[0][tnt.STAGE_STRIDE:], targs[0][tnt.STAGE_STRIDE:])
+        assert torch.equal(got[0][tnt.STAGE_STRIDE:], before[tnt.STAGE_STRIDE:])
 
 
 @pytest.mark.parametrize("tc", [False, True])
@@ -247,11 +249,12 @@ def test_one_board_update_moves_its_value_by_alpha_delta(tc):
     for board in ([[1, 2, 0, 0], [0, 3, 0, 0], [0, 0, 0, 0], [0, 0, 0, 1]],
                   [[1, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0]]):
         board = torch.tensor(board, dtype=torch.int8)
-        if tc:
+        if tc:  # the updates write the table in place: each board on a copy
             zero = torch.zeros_like(table)
-            t2 = tnt.td_update_tc(table, zero, zero, board[None], torch.tensor([10.0]), 0.5)[0]
+            t2 = tnt.td_update_tc(table.clone(), zero, zero, board[None], torch.tensor([10.0]),
+                                  0.5)[0]
         else:
-            t2 = tnt.td_update(table, board[None], torch.tensor([10.0]), alpha=0.5)
+            t2 = tnt.td_update(table.clone(), board[None], torch.tensor([10.0]), alpha=0.5)
         assert float(tnt.value(t2, board)) == pytest.approx(5.0, rel=1e-6)
 
 

@@ -211,9 +211,14 @@ def test_tc_combine_matches_jax():
 
 
 def test_tc_combine_leaves_its_inputs():
+    """The combine writes ``table + step`` into the table itself (a CUDA
+    graph reads the learner's table at one address) and leaves every other
+    input as it was."""
     x = [torch.ones(8) for _ in range(6)]
-    tnt._tc_combine(*x, 0.5)
-    assert all((v == 1).all() for v in x)
+    table, e2, a2 = tnt._tc_combine(*x, 0.5)
+    assert table is x[0] and (table == 1.5).all()
+    assert all((v == 1).all() for v in x[1:])
+    assert e2 is not x[1] and a2 is not x[2]
 
 
 class TestTCAccumulate:
@@ -250,9 +255,9 @@ class TestTCAccumulate:
         zeros = tuple(torch.zeros_like(table) for _ in range(3))
         p = net.tc_accumulate(zeros, b1, d1, valid=v1)
         p = net.tc_accumulate(p, b2, d2, valid=v2)
-        got = tnt._tc_combine(table, e0, a0, *p, 0.5)
-        want = net.td_update_tc(table, e0, a0, torch.cat([b1, b2]), torch.cat([d1, d2]),
-                                0.5, valid=torch.cat([v1, v2]))
+        got = tnt._tc_combine(table.clone(), e0, a0, *p, 0.5)
+        want = net.td_update_tc(table.clone(), e0, a0, torch.cat([b1, b2]),
+                                torch.cat([d1, d2]), 0.5, valid=torch.cat([v1, v2]))
         for g, w in zip(got, want):
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6)
 

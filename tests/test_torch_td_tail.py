@@ -1,13 +1,14 @@
 """The TD step's tail on static buffers (``TDTrainer._scan_steps`` and
-``train/td.py::_StepTail``): everything of a step after its greedy search,
-which on a CUDA device is one CUDA graph replay. Off the card a replay is a
-plain call of the same code on the same buffers, so these tests hold the
-buffers' data flow on the CPU: bit for bit against the JAX step on JAX's
-draws, and against the step written out on fresh tensors
-(``chip_smoke.reference_td_steps``) over whole chunks (delayed TC and not,
-the carousel on and off, both nets), with the returned states untouched by
-later chunks. The capture itself runs only on the card (``chip_smoke.py``
-phase 15g)."""
+``train/td.py::_StepTail``): everything of a step after its greedy search
+(``_GreedySearch``), each of which on a CUDA device is one CUDA graph
+replay. Off the card a replay is a plain call of the same code on the same
+buffers, so these tests hold the buffers' data flow on the CPU: bit for bit
+against the JAX step on JAX's draws, and against the step written out on
+fresh tensors (``chip_smoke.reference_td_steps``) over whole chunks
+(delayed TC and not, the carousel on and off, both nets and the small
+net's split lookup), with the returned states untouched by later chunks.
+The capture itself runs only on the card (``chip_smoke.py`` phase 15g,
+``test_torch_td_greedy.py``'s test marked ``card``)."""
 
 import dataclasses
 import functools
@@ -90,6 +91,8 @@ CHUNK_CASES = {
     "td": dict(BASE, tc=False),
     "small_tc": dict(tc=True, alpha=1.0, alpha_final=1.0, init_value=0.0),
     "small_td": dict(alpha=0.1, alpha_final=0.1, init_value=1000.0),
+    "small_td_split": dict(alpha=0.1, alpha_final=0.1, init_value=1000.0,
+                           update_impl="mxu", value_impl="mxu"),
 }
 
 
