@@ -34,7 +34,11 @@ counts:
   the card; phase 15g holds two chunks of the step against the same step
   written out on fresh tensors (``reference_td_steps``), bit for bit in
   deterministic mode (also for the small net's and bench.py's learners),
-  and profiles both (``--td-tail`` runs that phase alone);
+  and profiles both (``--td-tail`` runs that phase alone). The delayed-TC
+  combine is one kernel launch a window over the entries that the window
+  touched; phase 15h holds it, on a real window of the learner, bit for
+  bit against the dense combine of every entry and times both
+  (``--tc-combine`` runs that phase alone);
 * the small 17 x 4-cell TD learner (the learner's default ``--arch
   small``): the config of ``docs/curves/ntuple_table_tc1b.pkl`` at full
   width (8192 envs, TC, the 1,419,857-entry table), one 64-step chunk, one
@@ -187,7 +191,7 @@ PATHS = {
     "rollout": ("fused_rollout",),
     "step replay": ("fused_step_uniform", "fused_move", "random_uniform_rows"),
     "agent": ("gather_values",),
-    "td": ("gather_values",),
+    "td": ("gather_values", "tc_combine"),  # the flagship: delayed TC, a combine a window
     "td small": ("gather_values",),
     # the CNN (its BatchNorm layers the fused kernels' calls), PPO's env and the optimiser
     "ppo": ("batch_norm_forward", "batch_norm_backward"),
@@ -255,6 +259,8 @@ TD_TIMED_CHUNKS = 3
 # Phase 15g, the TD step (its tail a CUDA graph replay) against the reference
 # step: chunks each runs from one state
 TD_TAIL_CHUNKS = 2
+# timed calls of each combine in phase 15h, in turns
+TC_COMBINE_REPS = 7
 # the learners of bench.py's bench_td (the small net, split lookup, no TC)
 # and bench_td_big (4x6 TC, unstaged, TC on every step)
 TD_BENCH_SMALL = dict(n_envs=8192, chunk_steps=64, alpha=0.1, alpha_final=0.1,
@@ -1001,11 +1007,14 @@ def reference_td_steps(tr, carry: dict, alpha, length: int):
     search (``td._greedy_batch``), then the trainer's ``_update`` and
     ``_restart`` step functions; with delayed TC the update accumulates
     into pending sums made for this call, combined into the table at the
-    end of every window of ``tc_every`` steps. The table is a copy of the
-    given one made for this call, since the update and the combine write
-    it in place. Returns ``(carry, stats)`` as ``_scan_steps`` does: a new
-    carry (the given one's generator, advanced) and the per-step stats
+    end of every window of ``tc_every`` steps by the dense combine of every
+    entry (``ntuple._tc_combine``, then the sums zeroed), where the program
+    combines the entries that the window touched. The table is a copy of
+    the given one made for this call, since the update and the combine
+    write it in place. Returns ``(carry, stats)`` as ``_scan_steps`` does: a
+    new carry (the given one's generator, advanced) and the per-step stats
     stacked ``(length,)``."""
+    from gym2048_tpu_torch.models.ntuple import _tc_combine
     from gym2048_tpu_torch.train import td
 
     k, defer = tr._windows(length), tr._defer_tc
@@ -1024,7 +1033,11 @@ def reference_td_steps(tr, carry: dict, alpha, length: int):
         stats.append(restart(carry, new, draws, after, r, v_after, alive))
         carry = new
         if defer and (t + 1) % k == 0:
-            tr._combine(carry, alpha)
+            carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
+                carry["table"], carry["tc_e"], carry["tc_a"],
+                *(carry[p] for p in td._PENDING), alpha)
+            for p in td._PENDING:
+                carry[p].zero_()
     for p in td._PENDING:
         carry.pop(p, None)
     return carry, tuple(torch.stack(s) for s in zip(*stats))
@@ -1396,11 +1409,12 @@ class Smoke:
 
     def __init__(self):
         from gym2048_tpu_torch.core import fused_step
-        from gym2048_tpu_torch.models import batch_norm, table_gather
+        from gym2048_tpu_torch.models import batch_norm, ntuple, table_gather
 
         self.fs = fused_step
         self.tg = table_gather
-        self.counters = (fused_step.LAUNCHES, table_gather.LAUNCHES, batch_norm.LAUNCHES)
+        self.counters = (fused_step.LAUNCHES, table_gather.LAUNCHES, batch_norm.LAUNCHES,
+                         ntuple.LAUNCHES)
         count_replayed_launches()
         self.dev = torch.device("cuda")
         self.kernels = {name: {"name": name, "route": "cuda", "source": source,
@@ -2064,7 +2078,8 @@ class Smoke:
     # 15a
     def td_path(self) -> str:
         """The flagship TD learner at full width, one chunk, driven as path
-        "td": one lookup kernel launch per step."""
+        "td": one lookup kernel launch per step, one combine kernel launch
+        per window of delayed TC."""
         from gym2048_tpu_torch.train import td
 
         cfg = td.TDConfig(**TD_FLAGSHIP)
@@ -2075,6 +2090,9 @@ class Smoke:
         secs = time.perf_counter() - t0
         launches = self.path_launches["td"]["gather_values"]
         check(launches == cfg.chunk_steps, f"{launches} lookups in a {cfg.chunk_steps}-step chunk")
+        combines = self.path_launches["td"]["tc_combine"]
+        check(combines == cfg.chunk_steps // cfg.tc_every,
+              f"{combines} combines in a chunk of {cfg.chunk_steps // cfg.tc_every} windows")
         check(all(torch.isfinite(state[k]).all().item() for k in ("table", "tc_e", "tc_a")),
               "non-finite table or accumulators")
         check(not {"tc_ps", "tc_pa", "tc_pc"} & set(state), "pending buffers left in the state")
@@ -2362,6 +2380,118 @@ class Smoke:
             text += (f"; a step's table write in place {add_ms:.4f} ms, as a new table "
                      f"{plus_ms:.4f} ms ({tr.cfg.chunk_steps} steps a chunk)")
         return text
+
+    # 15h
+    def tc_combine(self) -> str:
+        """The delayed-TC combine kernel (``ntuple.tc_combine_at``) on a real
+        window of the flagship learner: the tail's table, ``tc_e``, ``tc_a``,
+        pending sums and index record as the second chunk's first combine
+        finds them, combined by the kernel, by its plain version and by the
+        dense combine of every entry (``_tc_combine``, then the sums zeroed):
+        the three results bit for bit equal and the sums 0 everywhere. Each
+        is timed between two events around the call alone, the six arrays
+        restored before each call (their sectors cold in the L2), against
+        the bound by bytes (each distinct 32-B sector of the entries that
+        the window counted, read and written in all six arrays, and 4 B an
+        occurrence). Also the share of occurrences that own an entry, the
+        kernel's registers and its launches in a chunk (one a window)."""
+        from gym2048_tpu_torch import _build, _sass
+        from gym2048_tpu_torch.models import ntuple
+        from gym2048_tpu_torch.models.ntuple import _tc_combine
+        from gym2048_tpu_torch.train import td
+
+        tr = td.TDTrainer(td.TDConfig(**TD_FLAGSHIP), device=self.dev)
+        state, _ = tr.train_chunk(tr.init_state(), tr.cfg.alpha)
+        keys = ("table", "tc_e", "tc_a", *td._PENDING)
+        saved = {}
+        combine = tr._combine
+
+        def first_window(carry, idx, alpha):
+            if not saved:
+                saved.update({k: carry[k].clone() for k in keys}, idx=idx.clone())
+            combine(carry, idx, alpha)
+
+        tr._combine = first_window
+        launches = ntuple.LAUNCHES["tc_combine"]
+        try:
+            tr.train_chunk(state, tr.cfg.alpha)
+        finally:
+            del tr._combine
+        torch.cuda.synchronize()
+        launches = ntuple.LAUNCHES["tc_combine"] - launches
+        windows = tr.cfg.chunk_steps // tr.cfg.tc_every
+        check(launches == windows, f"{launches} combine launches in a chunk of {windows} windows")
+        del tr, state
+        alpha = torch.as_tensor(TD_FLAGSHIP["alpha"], dtype=torch.float32)
+        work = {k: torch.empty_like(v) for k, v in saved.items()}
+
+        def restore():
+            for k, v in saved.items():
+                work[k].copy_(v)
+
+        def dense():
+            out = _tc_combine(work["table"], work["tc_e"], work["tc_a"],
+                              *(work[p] for p in td._PENDING), alpha)
+            for p in td._PENDING:
+                work[p].zero_()
+            return out
+
+        def sparse(fn):
+            def run():
+                return fn(work["table"], work["tc_e"], work["tc_a"],
+                          tuple(work[p] for p in td._PENDING), work["idx"], alpha)
+            return run
+
+        ways = {"kernel": sparse(ntuple.tc_combine_at),
+                "plain": sparse(ntuple.tc_combine_at_reference), "dense": dense}
+        restore()
+        want = [t.clone() for t in dense()]
+        for name in ("kernel", "plain"):
+            restore()
+            got = ways[name]()
+            for what, g, w in zip(("table", "tc_e", "tc_a"), got, want):
+                check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                      f"{name}: {what} differs from the dense combine's bits at "
+                      f"{int((g.view(torch.int32) != w.view(torch.int32)).sum())} entries")
+            check(not any(bool(work[p].any()) for p in td._PENDING),
+                  f"{name}: pending sums left after the combine")
+        del want, got
+        ms = {name: [] for name in ways}
+        for r in range(TC_COMBINE_REPS):
+            for name in (ways if r % 2 == 0 else reversed(list(ways))):
+                restore()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ways[name]()
+                end.record()
+                end.synchronize()
+                ms[name].append(start.elapsed_time(end))
+        med = {name: float(np.median(v)) for name, v in ms.items()}
+        idx, cnts = saved["idx"].reshape(-1).long(), saved[td._PENDING[2]]
+        entries = torch.unique(idx)
+        entries = entries[cnts[entries] > 0]
+        sectors = torch.unique(entries // 8).numel()
+        nbytes = sectors * 12 * 32 + 4 * idx.numel()
+        bound_ms, by = bound(0, nbytes)
+        library = _build.build(*_build.LIBRARIES["tc_combine"])
+        listing = subprocess.run([_sass.find_cuobjdump(), "-res-usage", str(library)],
+                                 capture_output=True, text=True, check=True).stdout
+        regs = {k: v["REG"] for k, v in resource_usage(listing).items() if "tc_combine" in k}
+        del work, saved
+        return (f"flagship window ({TD_FLAGSHIP['n_envs']} envs x {TD_FLAGSHIP['tc_every']} "
+                f"steps): {idx.numel()} occurrences, "
+                f"{entries.numel()} entries counted ({entries.numel() / idx.numel():.4f} of the "
+                f"occurrences own one), {sectors} distinct 32-B sectors; kernel, plain and "
+                f"dense results bit-identical, the pending sums 0 after each; device ms "
+                f"(median of {TC_COMBINE_REPS}, each after a restore of the six arrays): kernel "
+                f"{med['kernel']:.4f}, plain sparse {med['plain']:.4f}, dense {med['dense']:.3f}"
+                f" (x{med['dense'] / med['kernel']:.1f} the kernel's); bound {bound_ms:.4f} "
+                f"({by}: {nbytes / 1e6:.1f} MB, 12 x 32 B a sector + 4 B an occurrence; the "
+                f"table, tc_e and tc_a alone 6 x 32 B a sector, "
+                f"{sectors * 6 * 32 / MEM_BYTES_PER_S * 1e3:.4f} ms), share "
+                f"{bound_ms / med['kernel']:.3f}; registers {regs}; {launches} launches in a "
+                f"chunk of {windows} windows; on {self.smi}")
 
     # 15d
     def td_throughput(self) -> str:
@@ -4196,6 +4326,7 @@ def main() -> int:
     smoke.run("15e", "td profile", smoke.td_profile)
     smoke.run("15f", "td learning", smoke.td_learning)
     smoke.run("15g", "td step vs reference", smoke.td_tail)
+    smoke.run("15h", "tc_combine kernel", smoke.tc_combine)
     smoke.run("17a", "td small path", smoke.td_small_path)
     smoke.run("17b", "td small gather", smoke.td_small_gather)
     smoke.run("17c", "td small kernel vs plain", smoke.td_small_replay)
@@ -4246,6 +4377,16 @@ def td_tail_only() -> int:
     smoke.run("1", "device", smoke.device)
     smoke.run("2", "build", smoke.build)
     smoke.run("15g", "td step vs reference", smoke.td_tail)
+    print(smoke.smi, flush=True)
+    return 0
+
+
+def tc_combine_only() -> int:
+    """``--tc-combine``: the device, the build and phase 15h alone."""
+    smoke = Smoke()
+    smoke.run("1", "device", smoke.device)
+    smoke.run("2", "build", smoke.build)
+    smoke.run("15h", "tc_combine kernel", smoke.tc_combine)
     print(smoke.smi, flush=True)
     return 0
 
@@ -4584,6 +4725,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     parser.add_argument("--td-tail", action="store_true",
                         help="instead of all the phases, run phases 1, 2 and 15g (the TD "
                              "step against the reference step)")
+    parser.add_argument("--tc-combine", action="store_true",
+                        help="instead of all the phases, run phases 1, 2 and 15h (the delayed-TC "
+                             "combine kernel against the dense combine on a real window)")
     parser.add_argument("--ppo-sgd", action="store_true",
                         help="instead of all the phases, run phases 1 and 19f (PPO's SGD "
                              "step replayed against the eager step)")
@@ -4608,6 +4752,8 @@ if __name__ == "__main__":
         sys.exit(span_cost(args.span_cost))
     if args.td_tail and torch.cuda.is_available():
         sys.exit(td_tail_only())
+    if args.tc_combine and torch.cuda.is_available():
+        sys.exit(tc_combine_only())
     if args.ppo_sgd and torch.cuda.is_available():
         sys.exit(ppo_sgd_only())
     if args.ppo_rollout and torch.cuda.is_available():

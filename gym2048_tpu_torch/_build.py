@@ -33,6 +33,7 @@ LIBRARIES = {
     "fused_step": (CSRC / "fused_step.cu", BUILD / "libgym2048_fused.so"),
     "table_gather": (CSRC / "table_gather.cu", BUILD / "libgym2048_gather.so"),
     "batch_norm": (CSRC / "batch_norm.cu", BUILD / "libgym2048_batch_norm.so"),
+    "tc_combine": (CSRC / "tc_combine.cu", BUILD / "libgym2048_tc_combine.so"),
 }
 SOURCE, LIBRARY = LIBRARIES["fused_step"]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +62,10 @@ _SIGNATURES = {
         "gym_bn_backward": ([_I, _I, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _I, _P, _P, _P,
                              _P, _I, _I, _P], _I),
         "gym_bn_error_string": _STR,
+    },
+    "tc_combine": {
+        "gym_tc_combine": ([_P, _LL, _P, _P, _P, _P, _P, _P, _F, _P], _I),
+        "gym_tc_combine_error_string": _STR,
     },
 }
 

@@ -23,12 +23,19 @@ scatter and give the scatter's sums; they are not ported, and the trainer's
 
 Shared with the big networks: the 8 board symmetries (``SYMS``), the stage
 of a board in a staged table (:func:`stage_of_batch`), weight promotion
-(:func:`promote_table`) and the temporal-coherence combine
-(:func:`_tc_combine`).
+(:func:`promote_table`) and the temporal-coherence combine: dense over the
+whole table (:func:`_tc_combine`), and over the entries that a window of
+delayed-TC steps touched (:func:`tc_combine_at`: the CUDA kernel of
+``gym2048_tpu_torch/csrc/tc_combine.cu`` on the card, built at its first
+launch by :mod:`gym2048_tpu_torch._build` into a library of its own, and
+its plain version, :func:`tc_combine_at_reference`, on the CPU; a CUDA
+tensor never falls back to the plain version). ``LAUNCHES`` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -42,6 +49,7 @@ TABLE_SIZE = N_VALS ** TUPLE_LEN  # 83521
 N_TUPLES = 17  # 4 rows, 4 columns, 9 2x2 squares
 STAGE_STRIDE = N_TUPLES * TABLE_SIZE  # one stage of the small net's table
 N_FEATURES = 8 * N_TUPLES  # lookups per board
+LAUNCHES = {"tc_combine": 0}
 
 
 def _build_tuples() -> np.ndarray:
@@ -264,3 +272,78 @@ def _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha):
     rate.masked_fill_(~(a2 > 0.0), 1.0)  # where(a2 > 0, rate, 1), NaN included
     step = rate.mul_(alpha).mul_(d)  # (alpha * rate) * d
     return table.add_(step), e2, a2
+
+
+def _check_combine(table, tc_e, tc_a, pending, idx) -> None:
+    """Raise on arguments that :func:`tc_combine_at` does not take."""
+    if len(pending) != 3:
+        raise ValueError(f"pending must be (sums, absums, counts), got {len(pending)} arrays")
+    arrays = (("table", table), ("tc_e", tc_e), ("tc_a", tc_a),
+              *zip(("sums", "absums", "counts"), pending))
+    for name, t in arrays:
+        if (t.dim() != 1 or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.numel() != table.numel() or t.device != table.device):
+            raise ValueError(f"{name} must be flat contiguous float32 like the table "
+                             f"({table.numel()} on {table.device}), got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if idx.dtype != torch.int32 or idx.device != table.device:
+        raise ValueError(f"idx must be int32 on {table.device}, got {idx.dtype} on {idx.device}")
+
+
+def tc_combine_at_reference(table, tc_e, tc_a, pending, idx, alpha):
+    """The plain version of :func:`tc_combine_at`: the distinct entries of
+    ``idx`` whose count is above 0, :func:`_tc_combine` of those entries,
+    written back, and their pending sums and counts set to 0."""
+    sums, absums, cnts = pending
+    at = torch.unique(idx.reshape(-1).to(torch.int64))
+    at = at[cnts[at] > 0.0]
+    t, e2, a2 = _tc_combine(table[at], tc_e[at], tc_a[at], sums[at], absums[at], cnts[at],
+                            alpha)
+    for dst, src in ((table, t), (tc_e, e2), (tc_a, a2)):
+        dst[at] = src
+    for p in pending:
+        p[at] = 0.0
+    return table, tc_e, tc_a
+
+
+def tc_combine_at(table, tc_e, tc_a, pending, idx, alpha):
+    """The delayed-TC combine of the entries at the flat int32 indices
+    ``idx`` (any shape, each in ``[0, table.numel())``; a window's
+    occurrences, each entry as often as it was hit, masked ones at 0 with a
+    count of 0), IN PLACE: ``table``,
+    ``tc_e`` and ``tc_a`` are written where the ``pending`` ``(sums,
+    absums, counts)`` count above 0, and those sums and counts are set to
+    0. Every entry whose count is above 0 must be among ``idx``; there the
+    result equals :func:`_tc_combine` of the whole arrays bit for bit (which
+    leaves an entry with a count of 0 as it is, but for the sign of a zero),
+    and the pending sums are 0 everywhere afterwards. ``alpha`` is a number
+    or a CPU tensor. Returns ``(table, tc_e, tc_a)``, the given tensors.
+
+    On the CPU the plain version (:func:`tc_combine_at_reference`); on the
+    card one launch of the kernel on the current stream, raising on a build
+    or launch failure."""
+    _check_combine(table, tc_e, tc_a, pending, idx)
+    if table.device.type == "cpu":
+        return tc_combine_at_reference(table, tc_e, tc_a, pending, idx, alpha)
+    if table.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {table.device}; use cpu or cuda")
+    with torch.cuda.device(table.device):
+        _tc_combine_kernel(table, tc_e, tc_a, pending, idx.contiguous(), alpha)
+    return table, tc_e, tc_a
+
+
+def _tc_combine_kernel(table, tc_e, tc_a, pending, idx, alpha) -> None:
+    """One launch of the kernel on the current stream (the card path of
+    :func:`tc_combine_at`, on checked arguments and contiguous ``idx``)."""
+    from gym2048_tpu_torch import _build
+
+    if idx.numel() == 0:
+        return
+    lib = _build.library("tc_combine")
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (table, tc_e, tc_a, *pending)]
+    err = lib.gym_tc_combine(ctypes.c_void_p(idx.data_ptr()), idx.numel(), *ptrs, float(alpha),
+                             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        msg = lib.gym_tc_combine_error_string(err).decode()
+        raise RuntimeError(f"tc_combine_at: CUDA launch failed with error {err} ({msg})")
+    LAUNCHES["tc_combine"] += 1

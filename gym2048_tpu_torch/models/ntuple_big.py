@@ -191,8 +191,7 @@ class NTupleNetwork:
         sums, absums, cnts = self._scatter3(boards, w0, valid, table.numel())
         return _tc_combine(table, tc_e, tc_a, sums, absums, cnts, alpha)
 
-    def tc_accumulate(self, pending: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-                      boards: torch.Tensor, deltas: torch.Tensor,
+    def tc_accumulate(self, pending: tuple, boards: torch.Tensor, deltas: torch.Tensor,
                       valid: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Add one step's TC statistics into the table-sized ``pending``
@@ -201,9 +200,20 @@ class NTupleNetwork:
         combine runs every k steps. The buffers are updated IN PLACE (the
         JAX module's functional update would copy them every step) and
         returned. Combining the accumulated buffers with ``_tc_combine`` is
-        one TC update of the concatenated steps."""
+        one TC update of the concatenated steps.
+
+        ``pending`` may hold a fourth element, the window's index record
+        ``(rows, step)``: a ``(k, B * 8T)`` int32 buffer and a ``(1,)``
+        int64 step counter on the device. The step's flat occurrence
+        indices, those the sums were scattered at (a masked occurrence at
+        0), are then written into row ``step % k`` of ``rows``, which
+        ``ntuple.tc_combine_at`` reads, with no host scalar (a CUDA graph
+        holds the write)."""
         w0 = (8.0 / self.n_features) * deltas
         idx, w, keep = self._flat_updates(boards, w0, valid)
+        if len(pending) == 4:
+            rows, step = pending[3]
+            rows.index_copy_(0, step % rows.shape[0], idx.view(1, -1))
         payloads = (w, w.abs(), torch.ones_like(w))
         if keep is not None:
             payloads = tuple(torch.where(keep, p, 0.0) for p in payloads)

@@ -14,10 +14,14 @@ afterstates of every board with one lookup (the table gather kernel on the
 card), updates the table for the previous step's afterstate by a
 count-normalised scatter, spawns, and restarts finished games. Options, as
 in JAX: temporal coherence (``tc``, per-entry adaptive rates); for the big
-nets also delayed TC (``tc_every``: the table-sized TC combine once per
-window of steps, the statistics scatter-accumulated in between), staged
-tables (``thresholds``) and carousel restarts (``carousel``: finished games
+nets also delayed TC (``tc_every``: the TC combine once per window of
+steps, the statistics scatter-accumulated in between), staged tables
+(``thresholds``) and carousel restarts (``carousel``: finished games
 restart from recorded stage-entry boards), all from arXiv:1604.05085.
+Where JAX combines the whole table, the port combines the entries that the
+window's steps touched, whose flat indices each step records
+(``ntuple.tc_combine_at``: one CUDA kernel launch on the card), with the
+same result bit for bit.
 
 The small net's value modes are the JAX package's: ``"gather"`` (the exact
 lookup; ``"auto"`` here, as in JAX off the TPU), ``"mxu"`` (two lookups into
@@ -67,7 +71,7 @@ from gym2048_tpu_torch import interop
 from gym2048_tpu_torch.core import rules
 from gym2048_tpu_torch.env.batched import _fresh_boards
 from gym2048_tpu_torch.models import ntuple, ntuple_big
-from gym2048_tpu_torch.models.ntuple import _tc_combine, stage_of_batch
+from gym2048_tpu_torch.models.ntuple import stage_of_batch, tc_combine_at
 from gym2048_tpu_torch.parallel import mesh as pmesh
 from gym2048_tpu_torch.utils import graphs, profiler
 from gym2048_tpu_torch.utils.checkpoint import load_model, save_model
@@ -188,28 +192,36 @@ class _StepTail:
     The buffers: :attr:`u`, the step's draw (:meth:`TDTrainer._draws`
     writes it); :attr:`carry`, the step's leaves, the table and, with
     delayed TC, the pending sums, which stay zero between windows (the
-    combine zeroes them); :attr:`stats`, ``(n_done, done_score, highest)``
-    of each step. The inputs ``after``, ``r``, ``v_after``, ``alive`` are
-    the greedy search's results where they lie (:attr:`inputs`, copied
-    nowhere): on the card the outputs of the search's graph, the same
-    tensors at every replay. The graph reads no host scalar and not the
-    table, which the search's graph reads and the combine (and the update
-    without delayed TC, which stays outside) writes in place."""
+    combine zeroes them where it combines); with delayed TC
+    :attr:`window_idx`, the ``window`` shape ``(k, B * features)`` int32
+    record of the window's flat occurrence indices, each step's in row
+    ``step % k`` (:meth:`NTupleNetwork.tc_accumulate`), which the combine
+    reads; :attr:`stats`, ``(n_done, done_score, highest)`` of each step.
+    The inputs ``after``, ``r``, ``v_after``, ``alive`` are the greedy
+    search's results where they lie (:attr:`inputs`, copied nowhere): on
+    the card the outputs of the search's graph, the same tensors at every
+    replay. The graph reads no host scalar and not the table, which the
+    search's graph reads and the combine (and the update without delayed
+    TC, which stays outside) writes in place."""
 
-    def __init__(self, carry: dict, length: int, update, restart):
+    def __init__(self, carry: dict, length: int, update, restart,
+                 window: tuple[int, int] | None = None):
         boards = carry["boards"]
         dev, n = boards.device, boards.shape[0]
         self.key = self.key_of(carry, length)
         self.update, self.restart = update, restart
         self.carry = {k: torch.zeros_like(carry[k]) for k in _TAIL_KEYS & carry.keys()}
-        if update is not None:
-            self.carry.update((p, torch.zeros_like(carry["table"])) for p in _PENDING)
         self.u = torch.zeros((10 if "car_boards" in carry else 6, n), device=dev)
         self.draws = _split_draws(self.u)
         self.inputs = None  # the greedy search's (after, r, v_after, alive)
         self.stats = (torch.zeros(length, device=dev), torch.zeros(length, device=dev),
                       torch.zeros(length, dtype=boards.dtype, device=dev))
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.window_idx = self.record = None
+        if update is not None:  # delayed TC
+            self.carry.update((p, torch.zeros_like(carry["table"])) for p in _PENDING)
+            self.window_idx = torch.zeros(window, dtype=torch.int32, device=dev)
+            self.record = (self.window_idx, self.step)
         self.dirty = False  # pending sums left by a scan that did not end
         self.graphed = graphs.GraphedStep(self._run, "td.tail_replays", dev)
 
@@ -226,7 +238,7 @@ class _StepTail:
         after, r, v_after, alive = self.inputs
         new = dict(self.carry)
         if self.update is not None:
-            self.update(self.carry, new, r, v_after, alive)
+            self.update(self.carry, new, r, v_after, alive, self.record)
         stats = self.restart(self.carry, new, self.draws, after, r, v_after, alive)
         for k, buf in self.carry.items():
             if new[k] is not buf:
@@ -412,20 +424,22 @@ class TDTrainer:
                                        device=generator.device, out=out))
 
     def _update(self, alpha, defer_tc: bool):
-        """The step's TD update: ``update(carry, new, r, v_after, alive)``
-        writes into ``new`` the table (in place: ``new``'s table is
-        ``carry``'s) and new ``tc_e``, ``tc_a``, or with ``defer_tc`` the
-        pending sums (in place), that the update of ``carry``'s previous
-        afterstate gives. The function holds the config and the
-        network, not the trainer, which a :class:`_StepTail` that keeps it
-        would keep alive."""
+        """The step's TD update: ``update(carry, new, r, v_after, alive,
+        record=None)`` writes into ``new`` the table (in place: ``new``'s
+        table is ``carry``'s) and new ``tc_e``, ``tc_a``, or with
+        ``defer_tc`` the pending sums (in place), that the update of
+        ``carry``'s previous afterstate gives; with ``record``, a
+        :class:`_StepTail`'s ``(window_idx, step)``, the step's flat
+        occurrence indices go into the window's record too. The function
+        holds the config and the network, not the trainer, which a
+        :class:`_StepTail` that keeps it would keep alive."""
         cfg, net = self.cfg, self._net
         if net is not None:
             update_td, update_tc = net.td_update, net.td_update_tc
         else:
             update_td, update_tc = ntuple.td_update, ntuple.td_update_tc
 
-        def update(carry: dict, new: dict, r, v_after, alive) -> None:
+        def update(carry: dict, new: dict, r, v_after, alive, record=None) -> None:
             # TD update of the PREVIOUS afterstate, whose successor is the
             # searched boards: target r + V(after) if a move exists, else 0.
             # prev_valid masks just-reset envs out of deltas and counts.
@@ -434,6 +448,8 @@ class TDTrainer:
                 delta = target - carry["prev_v"]
                 if cfg.tc and defer_tc:
                     pending = tuple(carry[p] for p in _PENDING)
+                    if record is not None:
+                        pending += (record,)
                     new.update(zip(_PENDING, net.tc_accumulate(
                         pending, carry["prev_after"], delta, valid=carry["prev_valid"])))
                 elif cfg.tc:
@@ -490,16 +506,16 @@ class TDTrainer:
         return self._net if self._net is not None else self._small
 
     @staticmethod
-    def _combine(carry: dict, alpha) -> None:
+    def _combine(carry: dict, idx: torch.Tensor, alpha) -> None:
         """The delayed-TC combine of the pending sums into ``carry``'s
-        table (in place), ``tc_e`` and ``tc_a`` (new), then the sums
-        zeroed."""
+        table, ``tc_e`` and ``tc_a``, all in place, over the entries at the
+        window's recorded occurrence indices ``idx``, whose pending sums it
+        leaves at zero (``ntuple.tc_combine_at``), counted in the
+        profiler's ``td.sparse_combines``."""
         with profiler.span("td.combine"):
-            carry["table"], carry["tc_e"], carry["tc_a"] = _tc_combine(
-                carry["table"], carry["tc_e"], carry["tc_a"],
-                *(carry[p] for p in _PENDING), alpha)
-            for p in _PENDING:
-                carry[p].zero_()
+            profiler.count("td.sparse_combines", 1)
+            tc_combine_at(carry["table"], carry["tc_e"], carry["tc_a"],
+                          tuple(carry[p] for p in _PENDING), idx, alpha)
 
     @property
     def _defer_tc(self) -> bool:
@@ -523,20 +539,24 @@ class TDTrainer:
         writes the table in place), then the tail on the search's results:
         on the card the search and the tail are each one CUDA graph replay,
         elsewhere plain calls. With ``cfg.tc_every > 1`` (delayed TC) the
-        TC statistics accumulate in the tail's pending sums, and the
-        combine runs eagerly at the end of every window of ``tc_every``
-        steps, writing the table in place. The tail, and the search with
-        it, is built at the first call and again when the shapes, the step
-        count or torch's kernel flags change; the carry's leaves and table
-        are copied into it at the start and out of it at the end. Returns
-        a new carry (the given one's generator, advanced) and the per-step
-        stats stacked ``(length,)``."""
+        TC statistics accumulate in the tail's pending sums and each step's
+        occurrence indices in its window record, and the combine runs
+        eagerly at the end of every window of ``tc_every`` steps (windows
+        start at the scan's start), writing the table, ``tc_e`` and
+        ``tc_a`` in place: the latter two are copied once, at the start, so
+        that the given carry's stay as they were. The tail, and the search
+        with it, is built at the first call and again when the shapes, the
+        step count or torch's kernel flags change; the carry's leaves and
+        table are copied into it at the start and out of it at the end.
+        Returns a new carry (the given one's generator, advanced) and the
+        per-step stats stacked ``(length,)``."""
         k, defer = self._windows(length), self._defer_tc
         key = _StepTail.key_of(carry, length)
         if self._tail is None or self._tail.key != key:
             self._tail = self._greedy = None  # the old graphs and buffers go first
+            window = (k, carry["boards"].shape[0] * self._net.n_features) if defer else None
             self._tail = _StepTail(carry, length, self._update(None, True) if defer else None,
-                                   self._restart())
+                                   self._restart(), window)
         tail = self._tail
         if self._greedy is None or not self._greedy.fits(tail):
             self._greedy = None
@@ -544,6 +564,8 @@ class TDTrainer:
         greedy = self._greedy
         state = dict(carry)
         state.update(tail.load(carry))
+        if defer:  # the combine writes them in place
+            state.update((k, carry[k].clone()) for k in ("tc_e", "tc_a"))
         gen = carry["generator"]
         update = None if defer else self._update(alpha, False)
         for t in range(length):
@@ -553,7 +575,7 @@ class TDTrainer:
                 update(state, state, *found[1:])
             tail.replay(found)
             if defer and (t + 1) % k == 0:
-                self._combine(state, alpha)
+                self._combine(state, tail.window_idx, alpha)
         return tail.unload(state)
 
     def train_chunk(self, state: dict, alpha):

@@ -149,7 +149,7 @@ def test_td_chunk_records_its_phases():
     steps = TD_CFG.chunk_steps
     assert calls == {"td.chunk": 1, "td.greedy": steps, "td.lookup": steps, "td.update": steps,
                      "td.restart": steps, "td.combine": steps // TD_CFG.tc_every}
-    assert s["counters"] == {"td.steps": steps}
+    assert s["counters"] == {"td.steps": steps, "td.sparse_combines": steps // TD_CFG.tc_every}
     parents = {r[0]: profiler.RECORDER.records[r[1]][0] for r in profiler.RECORDER.records
                if r[1] >= 0}
     assert parents == {"td.greedy": "td.chunk", "td.lookup": "td.greedy",

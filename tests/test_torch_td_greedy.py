@@ -183,8 +183,9 @@ def test_the_search_is_built_again_for_new_shapes_steps_flags_or_table():
 
 def test_greedy_replays_read_zero_off_the_card():
     """Off the card the search makes plain calls: the replay counter never
-    counts, and each step opens ``td.greedy`` (with its ``td.lookup``) once,
-    inside ``_greedy_batch``, never one inside another."""
+    counts (the combine counts each of its four windows), and each step
+    opens ``td.greedy`` (with its ``td.lookup``) once, inside
+    ``_greedy_batch``, never one inside another."""
     tr = td.TDTrainer(td.TDConfig(n_envs=16, chunk_steps=4,
                                   **CASES["staged_delayed_tc_carousel"]), "cpu")
     profiler.clear()
@@ -197,7 +198,7 @@ def test_greedy_replays_read_zero_off_the_card():
     finally:
         profiler.clear()
     assert not tr._greedy.graphed.captures
-    assert s["counters"] == {"td.steps": 8}
+    assert s["counters"] == {"td.steps": 8, "td.sparse_combines": 4}
     assert s["spans"]["td.greedy"]["calls"] == s["spans"]["td.lookup"]["calls"] == 8
     for name, parent, *_ in records:
         while name == "td.greedy" and parent >= 0:

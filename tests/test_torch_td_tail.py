@@ -173,7 +173,7 @@ def test_tail_replays_read_zero_off_the_card():
     are the step's own (``td.update`` and ``td.restart`` inside the tail's
     calls, no ``td.tail``, which opens only around a graph's replay), and
     the replay counter never counts, in ``train_chunk`` or in a bare
-    ``_scan_steps``."""
+    ``_scan_steps``; the combine counts each of its two windows."""
     tr = ttd.TDTrainer(ttd.TDConfig(n_envs=16, chunk_steps=4,
                                     **CHUNK_CASES["deferred_carousel"]), "cpu")
     profiler.clear()
@@ -181,7 +181,8 @@ def test_tail_replays_read_zero_off_the_card():
         with profile(activities=[ProfilerActivity.CPU]):
             state, _ = tr.train_chunk(tr.init_state(), 1.0)
         s = profiler.summary()
-        assert s["counters"] == {"td.steps": 4} and "td.tail" not in s["spans"]
+        assert s["counters"] == {"td.steps": 4, "td.sparse_combines": 2}
+        assert "td.tail" not in s["spans"]
         assert s["spans"]["td.update"]["calls"] == s["spans"]["td.restart"]["calls"] == 4
         profiler.clear()
         with profile(activities=[ProfilerActivity.CPU]):
